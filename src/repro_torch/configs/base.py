@@ -1,0 +1,93 @@
+"""Configuration dataclasses of the port.
+
+``FedConfig``, ``TrainConfig``, ``MeshConfig`` and ``RunConfig`` keep every
+field name and default of the JAX package's configs, so a config reads the
+same in both. The sub-configs that default to ``None`` (mobility, faults,
+hierarchy, ingest) are kept as fields; the port does not run them yet, and
+``build_trainer`` refuses a config that sets them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from repro_torch.configs.paper_models import MLPConfig
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    """C-DFL hyperparameters (paper Alg. 2 / eqs. 5-8)."""
+
+    num_nodes: int = 4               # paper: 4 base stations
+    topology: str = "ring"           # ring | full | chain | erdos
+    gamma: float = 0.5               # consensus step size, in (0, 1/grad)
+    mixing: str = "cnd"              # cnd | uniform | metropolis | datasize
+    local_steps: int = 1             # local optimizer steps per round
+    # CND sketch
+    cnd_bits: int = 8_192            # bitmap size m (bits)
+    cnd_hashes: int = 3              # paper uses 3 hash functions
+    cnd_estimator: str = "paper_mean"  # paper_mean | linear_counting
+    sig_bits: int = 64               # simhash signature width
+    # a registered repro_torch.registry.algorithms name
+    algorithm: str = "cdfl"
+    cdfa_fraction: float = 1.0       # C-DFA(M): fraction of layers mixed
+    mixing_format: str = "dense"     # dense | sparse | hierarchical
+    degree: int = 8                  # sparse top-D neighbor cap
+    hierarchy: Optional[Any] = None
+    transport: str = "dense"         # registered transport plugin name
+    wire_dtype: str = "f32"          # registered wire codec plugin name
+    staleness: int = 0               # gossip bounded delay (0 = synchronous)
+    # The JAX package skips a pure-cast wire roundtrip on its CPU backend
+    # unless this is set. The port always casts, as the card's kernel
+    # reads the wire at its own dtype; the field is kept for parity.
+    simulate_wire: bool = False
+    mobility: Optional[Any] = None
+    faults: Optional[Any] = None
+    robust: Optional[str] = None
+    trim: int = 1                    # values trimmed per tail (trimmed_mean)
+    ingest: Optional[Any] = None
+
+    def __post_init__(self):
+        from repro_torch.registry import validate_fed_config
+        validate_fed_config(self)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout. fed*dp*tp (*pods) must equal device count."""
+
+    fed: int = 4
+    dp: int = 4
+    tp: int = 16
+    pods: int = 1
+
+    @property
+    def devices(self) -> int:
+        return self.pods * self.fed * self.dp * self.tp
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4      # paper MLP setting
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-7                # paper's delta
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0
+    batch_size: int = 32             # per-node minibatch (paper MLP)
+    rounds: int = 100
+    seed: int = 0
+    remat: str = "none"              # none | full | selective
+    param_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: MLPConfig
+    fed: FedConfig = field(default_factory=FedConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

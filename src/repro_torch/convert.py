@@ -1,0 +1,56 @@
+"""Carry weights and trainer state across from the JAX package.
+
+The JAX package keeps node-stacked params as a dict pytree and its Adam
+moments as lane-padded ``(K, P)`` buffers in the same column order as the
+port (leaves by sorted key). These functions take those values as numpy
+arrays (anything ``numpy.asarray`` accepts), so both packages can compute
+from the same numbers. Nothing here imports the JAX package: a state is
+read by its field names.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import flatten
+from repro_torch.core.cdfl import FedState
+from repro_torch.device import resolve_device
+from repro_torch.optim.adam import FlatAdamState
+
+
+def params_from_numpy(tree: dict, device=None):
+    """Node-stacked params ``{name: (K, ...) array}`` -> ``(buf, layout)``,
+    the port's ``(K, P)`` f32 buffer in the JAX package's column order."""
+    dev = resolve_device(device)
+    if not isinstance(tree, dict) or not tree:
+        raise ValueError("params must be a non-empty dict of arrays")
+    leaves = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            raise ValueError(f"nested params under {name!r}: the port's "
+                             f"flat layout takes one level of keys")
+        leaves[name] = torch.tensor(np.asarray(value), device=dev)
+    return flatten.flatten(leaves)
+
+
+def state_from_numpy(state, device=None) -> FedState:
+    """A JAX package ``FedState`` (read by field name: ``params``,
+    ``opt.step/m/v``, ``ratios``, ``sizes``, ``round``) -> the port's
+    :class:`repro_torch.core.cdfl.FedState`. Only the stateless dense
+    transport is ported, so ``tstate`` must be empty."""
+    dev = resolve_device(device)
+    buf, layout = params_from_numpy(dict(state.params), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    opt = FlatAdamState(
+        step=torch.tensor(np.asarray(state.opt.step), dtype=torch.int32,
+                          device=dev),
+        m=torch.tensor(np.asarray(state.opt.m), **f32),
+        v=torch.tensor(np.asarray(state.opt.v), **f32))
+    if opt.m.shape != buf.shape or opt.v.shape != buf.shape:
+        raise ValueError(f"moments {tuple(opt.m.shape)} do not match the "
+                         f"params buffer {tuple(buf.shape)}")
+    if len(getattr(state, "tstate", ())):
+        raise ValueError("stateful transports are not ported yet")
+    ratios = torch.tensor(np.asarray(state.ratios), **f32)
+    sizes = torch.tensor(np.asarray(state.sizes), **f32)
+    return FedState(buf, layout, opt, ratios, sizes, int(state.round))

@@ -1,0 +1,134 @@
+"""Flat parameter buffer for the consensus exchange (paper eq. 5).
+
+A node-stacked parameter dict (every leaf ``(K, ...)``) is packed into ONE
+contiguous ``(K, P)`` float32 buffer, with P padded once to a multiple of
+LANE = 128, so the whole exchange is one ``(K, K) @ (K, P)`` operation.
+Leaves are ordered by sorted key, the order ``jax.tree.flatten`` gives a
+dict in the JAX package, so the two packages' buffers agree column by
+column. :func:`unflatten` returns VIEWS of the buffer: the trainer's
+forward and backward read the params in place, and the gradient of the
+buffer is the flat gradient, with zeros in the padding.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+LANE = 128                      # pad P once to a multiple of this
+
+
+class FlatLayout(NamedTuple):
+    """Static pack/unpack metadata for one node-stacked parameter dict."""
+
+    names: tuple                # leaf keys, sorted
+    shapes: tuple               # per-leaf trailing shape (K stripped)
+    dtypes: tuple               # per-leaf dtype (restored on unpack)
+    offsets: tuple              # per-leaf start offset into the buffer
+    sizes: tuple                # per-leaf element count (trailing dims)
+    total: int                  # unpadded per-node element count
+    padded: int                 # total rounded up to a LANE multiple
+    num_nodes: int              # K
+
+
+def make_layout(params: dict) -> FlatLayout:
+    """Layout of a node-stacked dict of tensors, every leaf ``(K, ...)``."""
+    if not params:
+        raise ValueError("cannot flatten an empty parameter dict")
+    names = tuple(sorted(params))
+    k = params[names[0]].shape[0]
+    shapes, dtypes, offsets, sizes = [], [], [], []
+    off = 0
+    for name in names:
+        leaf = params[name]
+        if leaf.dim() < 1 or leaf.shape[0] != k:
+            raise ValueError(
+                f"leaf {name!r} {tuple(leaf.shape)} lacks the leading node "
+                f"dim K={k}")
+        size = 1
+        for d in leaf.shape[1:]:
+            size *= int(d)
+        shapes.append(tuple(int(d) for d in leaf.shape[1:]))
+        dtypes.append(leaf.dtype)
+        offsets.append(off)
+        sizes.append(size)
+        off += size
+    padded = -(-off // LANE) * LANE
+    return FlatLayout(names=names, shapes=tuple(shapes), dtypes=tuple(dtypes),
+                      offsets=tuple(offsets), sizes=tuple(sizes), total=off,
+                      padded=padded, num_nodes=k)
+
+
+def flatten(params: dict, layout: FlatLayout | None = None):
+    """Pack a node-stacked dict into a ``(K, P)`` float32 buffer on the
+    leaves' device. Returns ``(buf, layout)``; the tail padding is zero."""
+    if layout is None:
+        layout = make_layout(params)
+    k = layout.num_nodes
+    pieces = [params[n].reshape(k, -1).to(torch.float32)
+              for n in layout.names]
+    pad = layout.padded - layout.total
+    if pad:
+        pieces.append(pieces[0].new_zeros((k, pad)))
+    return torch.cat(pieces, dim=1).contiguous(), layout
+
+
+def unflatten(buf: torch.Tensor, layout: FlatLayout) -> dict:
+    """Leaf views of the ``(K, P)`` buffer (no copy for f32 leaves; other
+    dtypes are cast back, which copies)."""
+    k = buf.shape[0]
+    out = {}
+    for name, shape, dtype, off, size in zip(layout.names, layout.shapes,
+                                             layout.dtypes, layout.offsets,
+                                             layout.sizes):
+        leaf = buf[:, off:off + size].view((k,) + shape)
+        out[name] = leaf if dtype == buf.dtype else leaf.to(dtype)
+    return out
+
+
+def prefix_length(layout: FlatLayout, fraction: float) -> int:
+    """Flat-buffer prefix covering the first ``fraction`` of leaves:
+    C-DFA(M) mixes only the first ``max(1, round(f * n_leaves))`` leaves
+    (paper Sec. 5.3), a contiguous column prefix here."""
+    n_leaves = len(layout.sizes)
+    n_mix = max(1, int(round(fraction * n_leaves)))
+    if n_mix >= n_leaves:
+        return layout.total
+    return layout.offsets[n_mix]
+
+
+def apply_matrix_flat(buf: torch.Tensor,
+                      matrix: torch.Tensor) -> torch.Tensor:
+    """``A @ BUF``: any (K, K) linear consensus operator applied to every
+    parameter of every node in one call (kernel B2 on the card)."""
+    return ops.flat_consensus(matrix.to(buf.dtype).contiguous(), buf)
+
+
+def mix_flat(buf: torch.Tensor, eta: torch.Tensor, gamma,
+             self_weight: float = 1.0,
+             wire: torch.Tensor | None = None) -> torch.Tensor:
+    """Paper eq. (5) on the flat buffer, one fused call (kernel B1 on the
+    card):
+
+        phi_k = sw * W_k + gamma * sum_i eta_ki (W_i - W_k)
+
+    The delta form (neighbor product minus the row-sum rescale) keeps the
+    cancellation error at the f32 noise floor. ``wire`` is the buffer as
+    it traveled the network (default ``buf``), e.g. its bf16 cast: only
+    the difference terms see the wire precision, ``buf`` stays the f32
+    master."""
+    w = buf if wire is None else wire
+    out = ops.flat_mix(eta.to(buf.dtype).contiguous(), buf, w, gamma)
+    if self_weight == 1.0:
+        return out
+    return out + (self_weight - 1.0) * buf
+
+
+def disagreement_flat(buf: torch.Tensor, total: int) -> torch.Tensor:
+    """Mean squared node deviation from the node mean. ``total`` is the
+    unpadded per-node element count (the zero padding adds nothing)."""
+    mu = buf.mean(dim=0, keepdim=True)
+    ss = torch.sum((buf - mu) ** 2)
+    return ss / (buf.shape[0] * total)

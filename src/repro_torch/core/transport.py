@@ -1,0 +1,111 @@
+"""Consensus transport — how the flat ``(K, P)`` buffer moves.
+
+    buf', state' = transport.exchange(buf, eta, gamma, state, rnd)
+
+What travels the wire is a :class:`WireCodec`: ``f32`` (identity) or
+``bf16``, which halves the exchanged bytes; the delta-form mix keeps the
+wire precision on the neighbor differences, which vanish at consensus.
+On the card a bf16 wire is a real cast that kernel B1 reads as bf16.
+Transports are ``fed -> Transport`` factories in
+:data:`repro_torch.registry.transports`; only the dense transport is
+ported so far.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core import flatten
+from repro_torch.registry import transports, wire_codecs
+
+
+class WireCodec:
+    """f32 flat buffer <-> wire representation.
+
+    ``encode(buf)`` returns the wire form, ``decode(wire, dtype)`` what a
+    receiver reconstructs. ``cast_dtype`` is set when ``encode`` is a pure
+    dtype cast, so the fused mix kernel may read the encoded buffer
+    directly."""
+
+    name: str = "?"
+    cast_dtype = None
+
+    def encode(self, buf: torch.Tensor):
+        raise NotImplementedError
+
+    def decode(self, wire, dtype=torch.float32) -> torch.Tensor:
+        raise NotImplementedError
+
+    def roundtrip(self, buf: torch.Tensor) -> torch.Tensor:
+        """``buf`` as it survives the wire, back in ``buf``'s dtype."""
+        return self.decode(self.encode(buf), buf.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class CastCodec(WireCodec):
+    """Pure dtype cast: ``f32`` (identity) and ``bf16``."""
+
+    name: str = "f32"
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def cast_dtype(self):
+        return self.dtype
+
+    def encode(self, buf: torch.Tensor) -> torch.Tensor:
+        return buf.to(self.dtype)
+
+    def decode(self, wire, dtype=torch.float32) -> torch.Tensor:
+        return wire.to(dtype)
+
+
+wire_codecs.register("f32", CastCodec("f32", torch.float32))
+wire_codecs.register("bf16", CastCodec("bf16", torch.bfloat16))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTransport:
+    """Fused dense exchange: every node mixes every neighbor in one
+    ``(K, K) @ (K, P)`` operation (the eta matrix encodes the topology)."""
+
+    wire_dtype: str = "f32"
+
+    @property
+    def codec(self) -> WireCodec:
+        return wire_codecs.get(self.wire_dtype)
+
+    def init_state(self, buf: torch.Tensor) -> Any:
+        return ()
+
+    def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
+        """Eq. 5 on ``buf`` with weights ``eta``. ``sent`` overrides the
+        per-node wire payloads (fault injection): the neighbor terms then
+        read the codec'd payloads while the self term keeps each node's
+        own buffer through the codec."""
+        codec = self.codec
+        if sent is None:
+            # the registered codecs are pure casts: the kernel reads the
+            # cast buffer and upcasts it itself
+            wire = None if codec.cast_dtype == buf.dtype else codec.encode(buf)
+            return flatten.mix_flat(buf, eta, gamma, wire=wire), state
+        w_nb = codec.roundtrip(sent)
+        w_self = codec.roundtrip(buf)
+        eta32 = eta.to(buf.dtype)
+        row = eta32.sum(dim=1)
+        mixed = flatten.apply_matrix_flat(w_nb.contiguous(), eta32)
+        g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+        return buf + g * (mixed - row[:, None] * w_self), state
+
+
+@transports.register("dense")
+def _make_dense(fed) -> DenseTransport:
+    return DenseTransport(wire_dtype=fed.wire_dtype)
+
+
+def make_transport(fed) -> Any:
+    """The transport a :class:`repro_torch.configs.base.FedConfig` asks
+    for: a registry lookup."""
+    wire_codecs.get(fed.wire_dtype)
+    return transports.get(fed.transport)(fed)

@@ -1,0 +1,122 @@
+"""Build the CUDA sources under ``src/repro_torch/csrc`` and bind them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` into ``build/repro_torch/lib<name>.so`` at the root of the
+checkout, then loaded with :mod:`ctypes`. A library is rebuilt when it is
+missing or older than its source. Nothing here runs at import time: the
+first kernel launch builds what it needs, and :func:`build_all` builds
+every source at once, one ``nvcc`` process per source, all started
+together.
+
+Every entry point takes raw device pointers and PyTorch's current stream
+(``c_void_p``) and returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+# source name -> {C entry point: argtypes}
+SIGNATURES: dict[str, dict[str, list]] = {
+    "consensus_mix": {
+        "repro_flat_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_flat_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_flat_consensus": [_P, _P, _P, _I, _I, _P],
+    },
+    "cnd_sketch": {
+        "repro_cnd_bitmaps": [_P, _P, _I, _I, _I, _I, _I, _P],
+        "repro_cnd_popcount": [_P, _P, _I, _I, _P],
+    },
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler; raises when the toolkit is absent."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.exists():
+        return str(DEFAULT_NVCC)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                       "are built on a machine with the CUDA toolkit")
+
+
+def _paths(name: str) -> tuple[Path, Path]:
+    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    src, lib = _paths(name)
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(force: bool = False) -> dict[str, str]:
+    """Compile every stale source in parallel; returns each compiled
+    source's compiler log (``-Xptxas -v`` register and shared-memory
+    report). Raises with the log when a compile fails."""
+    names = [n for n in SIGNATURES if force or _stale(n)]
+    if not names:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    procs = {}
+    for name in names:
+        src, lib = _paths(name)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    if _stale(name):
+        build_all()
+    lib = ctypes.CDLL(str(_paths(name)[1]))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def check(name: str, fn: str, code: int) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if code != 0:
+        msg = library(name).repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{fn} failed: CUDA error {code} ({msg})")
+

@@ -1,0 +1,96 @@
+"""Wrappers of the B1 ``flat_mix`` and B2 ``flat_consensus`` CUDA kernels
+(``csrc/consensus_mix.cu``), which replace the Pallas kernels of
+``src/repro/kernels/consensus_mix.py``.
+
+These wrappers take CUDA tensors only: they check device, dtype, shape
+and contiguity, allocate the output with ``torch.empty``, launch on
+PyTorch's current stream and raise on a CUDA error. The plain PyTorch
+versions live in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops`
+picks between the two by the tensor's device.
+
+Each wrapper counts its launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_LIB = "consensus_mix"
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"CUDA kernel got a tensor on {t.device}; "
+                             f"use repro_torch.kernels.ops for CPU tensors")
+        _require(t.device == dev, "all tensors must be on one device")
+        _require(t.is_contiguous(), "tensors must be contiguous")
+    return dev
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
+             gamma: torch.Tensor) -> torch.Tensor:
+    """``OUT = MASTER + gamma * (ETA @ WIRE - rowsum(ETA) * WIRE)``.
+
+    eta (K, K) f32; master (K, P) f32; wire (K, P) f32 or bf16; gamma a
+    one-element f32 tensor on the same device. Accumulates in f32."""
+    dev = _check_cuda(eta, master, wire, gamma)
+    _require(master.dim() == 2, f"master must be (K, P), got {master.shape}")
+    k, p = master.shape
+    _require(eta.shape == (k, k), f"eta {tuple(eta.shape)} != {(k, k)}")
+    _require(wire.shape == master.shape,
+             f"wire {tuple(wire.shape)} != master {tuple(master.shape)}")
+    _require(gamma.numel() == 1, "gamma must hold one value")
+    for name, t in (("eta", eta), ("master", master), ("gamma", gamma)):
+        _require(t.dtype == torch.float32, f"{name} must be float32")
+    if wire.dtype == torch.float32:
+        fn = "repro_flat_mix_f32"
+    elif wire.dtype == torch.bfloat16:
+        fn = "repro_flat_mix_bf16"
+    else:
+        raise ValueError(f"wire dtype {wire.dtype} not supported "
+                         f"(float32 or bfloat16)")
+    out = torch.empty_like(master)
+    lib = _build.library(_LIB)
+    code = getattr(lib, fn)(eta.data_ptr(), master.data_ptr(),
+                            wire.data_ptr(), gamma.data_ptr(),
+                            out.data_ptr(), k, p, _stream(dev))
+    flat_mix.launches += 1
+    _build.check(_LIB, fn, code)
+    return out
+
+
+flat_mix.launches = 0
+
+
+def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """``OUT = A @ BUF`` for any (K, K) f32 operator and (K, P) f32 buffer,
+    in full f32 (no tensor cores)."""
+    dev = _check_cuda(matrix, buf)
+    _require(buf.dim() == 2, f"buf must be (K, P), got {buf.shape}")
+    k, p = buf.shape
+    _require(matrix.shape == (k, k),
+             f"matrix {tuple(matrix.shape)} != {(k, k)}")
+    _require(matrix.dtype == torch.float32 and buf.dtype == torch.float32,
+             "flat_consensus takes float32 tensors")
+    out = torch.empty_like(buf)
+    lib = _build.library(_LIB)
+    code = lib.repro_flat_consensus(matrix.data_ptr(), buf.data_ptr(),
+                                    out.data_ptr(), k, p, _stream(dev))
+    flat_consensus.launches += 1
+    _build.check(_LIB, "repro_flat_consensus", code)
+    return out
+
+
+flat_consensus.launches = 0

@@ -1,0 +1,128 @@
+"""Plugin registries of the port: every user-selectable scheme family is a
+named plugin in a :class:`Registry` rather than a string branched on in a
+caller.
+
+* :data:`transports`      — how the flat ``(K, P)`` buffer moves
+  (``fed -> Transport`` factories, :mod:`repro_torch.core.transport`);
+* :data:`wire_codecs`     — the buffer's representation on the wire;
+* :data:`mixing_policies` — eq. 6 weight rules
+  (:mod:`repro_torch.core.topology`);
+* :data:`algorithms`      — trainer-level schemes
+  (:class:`AlgorithmSpec`, registered by :mod:`repro_torch.core.baselines`).
+
+Names the JAX package knows but the port does not run yet are listed in
+:data:`NOT_PORTED`: a config may name them, and ``build_trainer`` refuses
+them with the ROADMAP item that will port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+
+class Registry:
+    """Name -> plugin mapping with decorator registration; a lookup miss
+    lists the registered names."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: dict[str, Any] = {}
+
+    def register(self, name: str, obj: Any = None):
+        """``register("x", obj)`` or the ``@register("x")`` decorator."""
+        if obj is None:
+            def deco(fn):
+                self._add(name, fn)
+                return fn
+            return deco
+        self._add(name, obj)
+        return obj
+
+    def _add(self, name: str, obj: Any) -> None:
+        if not isinstance(name, str) or not name:
+            raise ValueError(f"{self.kind} plugin name must be a non-empty "
+                             f"string, got {name!r}")
+        if name in self._entries:
+            raise ValueError(f"{self.kind} {name!r} already registered")
+        self._entries[name] = obj
+
+    def get(self, name: str) -> Any:
+        try:
+            return self._entries[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown {self.kind} {name!r} "
+                f"(registered: {', '.join(self.names()) or '<none>'})"
+            ) from None
+
+    def names(self) -> tuple[str, ...]:
+        return tuple(sorted(self._entries))
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgorithmSpec:
+    """One trainer-level scheme: the mixing policy its exchange uses,
+    whether it routes through a transport, and its trainer constructor
+    ``(loss_fn, fed, train, **kw) -> Trainer``."""
+
+    name: str
+    mixing: str
+    uses_transport: bool
+    make: Callable
+
+
+transports = Registry("transport")
+wire_codecs = Registry("wire codec")
+mixing_policies = Registry("mixing policy")
+algorithms = Registry("algorithm")
+
+# (config field, value) -> the ROADMAP item that ports it
+NOT_PORTED = {
+    ("algorithm", "dpsgd"): "ROADMAP queue A item 14 (dpsgd and cdfa_m)",
+    ("algorithm", "cdfa_m"): "ROADMAP queue A item 14 (dpsgd and cdfa_m)",
+    ("transport", "ring"): "ROADMAP queue A item 20 (ring and gossip "
+                           "transports)",
+    ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
+                             "transports)",
+    ("mixing_format", "sparse"): "ROADMAP queue A item 17 (sparse format, "
+                                 "kernel B5)",
+    ("mixing_format", "hierarchical"): "ROADMAP queue A item 18 "
+                                       "(hierarchy, kernel B6)",
+    ("mobility", None): "ROADMAP queue A item 15 (mobility)",
+    ("faults", None): "ROADMAP queue A item 16 (faults and robust mixing, "
+                      "kernel B7)",
+    ("robust", None): "ROADMAP queue A item 16 (faults and robust mixing, "
+                      "kernel B7)",
+    ("ingest", None): "ROADMAP queue A item 19 (ingest)",
+}
+
+_loaded = False
+
+
+def ensure_plugins() -> None:
+    """Import the built-in plugin modules (idempotent)."""
+    global _loaded
+    if _loaded:
+        return
+    import repro_torch.core.topology    # noqa: F401  (mixing policies)
+    import repro_torch.core.transport   # noqa: F401  (transports, codecs)
+    import repro_torch.core.baselines   # noqa: F401  (algorithms)
+    _loaded = True
+
+
+def _check_name(registry: Registry, field: str, name: str) -> None:
+    if (field, name) not in NOT_PORTED:
+        registry.get(name)
+
+
+def validate_fed_config(fed) -> None:
+    """Every plugin name on a ``FedConfig`` must be registered or known to
+    the JAX package and listed in :data:`NOT_PORTED`."""
+    ensure_plugins()
+    _check_name(transports, "transport", fed.transport)
+    wire_codecs.get(fed.wire_dtype)
+    mixing_policies.get(fed.mixing)
+    _check_name(algorithms, "algorithm", fed.algorithm)
+    if fed.mixing_format not in ("dense", "sparse", "hierarchical"):
+        raise ValueError(f"unknown mixing_format {fed.mixing_format!r} "
+                         f"(choose from dense | sparse | hierarchical)")

@@ -1,0 +1,145 @@
+"""The port stands alone: no import of JAX or of the JAX package, configs
+that read the same as the reference's, entry points that run on the card
+unless asked for the CPU, and refusals for what is not ported yet."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.configs import paper_models as jmodels
+from repro.data import pipeline as jpipeline
+from repro.data import redundancy as jredundancy
+from repro.data import synthetic as jsynthetic
+from repro_torch import convert, registry
+from repro_torch.configs import base as tbase
+from repro_torch.configs import paper_models as tmodels
+from repro_torch.configs.paper_models import MLP_CONFIG
+from repro_torch.core import cdfl
+from repro_torch.data import pipeline as tpipeline
+from repro_torch.data import redundancy as tredundancy
+from repro_torch.data import synthetic as tsynthetic
+from repro_torch.models import simple
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_port_never_imports_jax_or_the_reference():
+    bad = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+                    bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
+    assert len(_port_files()) > 10
+
+
+def _fields(cls):
+    return [(f.name, f.default if f.default is not dataclasses.MISSING
+             else f.default_factory().__class__.__name__
+             if f.default_factory is not dataclasses.MISSING else None)
+            for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", ["FedConfig", "TrainConfig", "MeshConfig"])
+def test_config_fields_and_defaults_match_reference(name):
+    assert _fields(getattr(tbase, name)) == _fields(getattr(jbase, name))
+
+
+def test_run_config_and_mlp_config_match_reference():
+    assert [f.name for f in dataclasses.fields(tbase.RunConfig)] == \
+        [f.name for f in dataclasses.fields(jbase.RunConfig)]
+    assert _fields(tmodels.MLPConfig) == _fields(jmodels.MLPConfig)
+
+
+def _loss():
+    return simple.make_mlp_loss(MLP_CONFIG)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cdfl.build_trainer(_loss(), tbase.FedConfig(), tbase.TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simple.mlp_init(torch.Generator(), MLP_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_from_numpy({"w": np.zeros((2, 3), np.float32)})
+    tr = cdfl.build_trainer(_loss(), tbase.FedConfig(), tbase.TrainConfig(),
+                            device="cpu")
+    assert tr.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"algorithm": "dpsgd"}, "item 14"),
+    ({"algorithm": "cdfa_m"}, "item 14"),
+    ({"transport": "ring"}, "item 20"),
+    ({"transport": "gossip"}, "item 20"),
+    ({"mixing_format": "sparse"}, "item 17"),
+    ({"mixing_format": "hierarchical"}, "item 18"),
+    ({"mobility": object()}, "item 15"),
+    ({"faults": object()}, "item 16"),
+    ({"robust": "median"}, "item 16"),
+    ({"ingest": object()}, "item 19"),
+])
+def test_unported_options_are_refused(kw, item):
+    fed = tbase.FedConfig(**kw)
+    with pytest.raises(NotImplementedError, match=item):
+        cdfl.build_trainer(_loss(), fed, tbase.TrainConfig(), device="cpu")
+    assert any(v.startswith(f"ROADMAP queue A {item}")
+               for v in registry.NOT_PORTED.values())
+
+
+def test_unknown_names_fail_at_construction():
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        tbase.FedConfig(algorithm="nope")
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tbase.FedConfig(wire_dtype="int8")
+    with pytest.raises(ValueError, match="unknown mixing_format"):
+        tbase.FedConfig(mixing_format="banded")
+
+
+def test_fedavg_rejects_transport_settings():
+    fed = tbase.FedConfig(algorithm="fedavg", wire_dtype="bf16")
+    with pytest.raises(ValueError, match="does not use the consensus"):
+        cdfl.build_trainer(_loss(), fed, tbase.TrainConfig(), device="cpu")
+
+
+def test_data_copies_produce_identical_arrays():
+    nodes_j = [jredundancy.inject_duplicates(
+        jsynthetic.synthetic_mnist(seed=i, n=50, noise=2.0,
+                                   classes=[1, 3] if i else None),
+        0.4 + 0.2 * i, seed=i) for i in range(3)]
+    nodes_t = [tredundancy.inject_duplicates(
+        tsynthetic.synthetic_mnist(seed=i, n=50, noise=2.0,
+                                   classes=[1, 3] if i else None),
+        0.4 + 0.2 * i, seed=i) for i in range(3)]
+    for a, b in zip(nodes_j, nodes_t):
+        for field in ("x", "y", "features"):
+            np.testing.assert_array_equal(getattr(a, field),
+                                          getattr(b, field))
+        assert jredundancy.true_distinct_count(a.features) == \
+            tredundancy.true_distinct_count(b.features)
+    # unequal sizes: node_items pads by cycling
+    nodes_j[1] = nodes_j[1]._replace(features=nodes_j[1].features[:17])
+    nodes_t[1] = nodes_t[1]._replace(features=nodes_t[1].features[:17])
+    bj = jpipeline.FederatedBatcher(nodes_j, 8, 3, seed=5)
+    bt = tpipeline.FederatedBatcher(nodes_t, 8, 3, seed=5)
+    np.testing.assert_array_equal(bt.node_items(), bj.node_items())
+    assert bt.node_items().dtype == np.int32
