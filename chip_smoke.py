@@ -4,17 +4,25 @@
     python3 chip_smoke.py
 
 Phases: the device; the build of every CUDA kernel from
-``src/repro_torch/csrc``; each kernel held against its plain PyTorch
-version at the shapes of the main path, with CUDA-event timings; the
+``src/repro_torch/csrc``; the per-round mixing stacks of the K=1024
+vehicular fleet (Manhattan mobility, sparse top-8 and hierarchical),
+built once on the host and timed on their own line; each kernel held
+against its plain PyTorch version at the shapes of the main path, with
+CUDA-event timings (B5/B6 on the fleet's own neighbor tables); the
 paper's C-DFL path at K=4 (cdfl, then fedavg), each checked against the
 same run of the port on the CPU; a K=256 bf16-wire fleet, with one round
-under the profiler; the kernel table as one JSON line; and the verdict as
-the last line. Every path phase zeroes the kernels' launch counts before
-it runs and checks them after. Exits non-zero, with no verdict, when CUDA
-is absent or any check fails.
+under the profiler; the twin of ``examples/mobility_platoon.py`` (K=8,
+dense format, checked against the CPU); the sparse and the hierarchical
+K=1024 fleets (1 warm-up round, then 3 repeats of 5 timed rounds, one
+profiled round, the exchange timed alone), each format also checked
+against the CPU at K=64; the kernel table as one JSON line; and the
+verdict as the last line. Every path phase zeroes the kernels' launch
+counts before it runs and checks them after. Exits non-zero, with no
+verdict, when CUDA is absent or any check fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -35,6 +43,15 @@ F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 P = 23_936                    # the paper MLP's lane-padded buffer width
+FLEET_K = 1024                # the vehicular fleet phases
+# 1 warm-up round, 3 repeats of 5 timed rounds, 1 profiled round
+FLEET_ROUNDS = 17
+# benchmarks/paper_tables.py MOBILITY_SCENARIOS["manhattan"]
+MANHATTAN = dict(kind="manhattan", speed=10.0, radio_range=500.0,
+                 area=800.0, dt=2.0, seed=0)
+# examples/mobility_platoon.py
+PLATOON = dict(kind="platoon", speed=25.0, speed_jitter=0.4,
+               radio_range=300.0, dt=5.0, seed=3, link_quality="quadratic")
 RTOL, ATOL = 1e-5, 1e-6       # f32 kernels against their plain versions
 
 
@@ -50,11 +67,13 @@ def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def timing(fn, launches: int = 20, reps: int = 20) -> tuple[float, float]:
+def timing(fn, launches: int = 20, reps: int = 20,
+           graph: bool = True) -> tuple[float, float | None]:
     """Milliseconds per call of ``fn``: (1) ``launches`` calls issued back
     to back by the host between two CUDA events, what a caller pays; (2)
     the same calls captured in one CUDA graph and replayed, the device
-    time without host launch gaps. Each is the median of ``reps`` runs."""
+    time without host launch gaps (None with ``graph=False``). Each is the
+    median of ``reps`` runs."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -76,41 +95,72 @@ def timing(fn, launches: int = 20, reps: int = 20) -> tuple[float, float]:
             fn()
 
     eager = run(burst)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    if not graph:
+        return eager, None
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         burst()
-    return eager, run(graph.replay)
+    return eager, run(g.replay)
 
 
-def paper_nodes(k: int):
+def paper_nodes(k: int, n: int = 320):
     """The quickstart's stations: synthetic MNIST with 10-80% distinct
-    items, cycled over ``k`` stations."""
+    items, cycled over ``k`` stations, ``n`` items each."""
     from repro_torch.data import redundancy, synthetic
     ratios = [0.1, 0.3, 0.5, 0.8]
     return [redundancy.inject_duplicates(
-        synthetic.synthetic_mnist(seed=i, n=320, noise=2.0),
+        synthetic.synthetic_mnist(seed=i, n=n, noise=2.0),
         ratios[i % 4], seed=i) for i in range(k)]
 
 
-def node_arrays(nodes):
+def synthetic_nodes(i: int):
+    """A vehicle of examples/mobility_platoon.py: 256 synthetic-MNIST
+    items, no injected duplicates."""
+    from repro_torch.data import synthetic
+    return synthetic.synthetic_mnist(seed=i, n=256, noise=2.0)
+
+
+def node_arrays(nodes, local_steps: int = 10):
     from repro_torch.data import pipeline
     data = {"x": np.stack([d.x for d in nodes]),
             "y": np.stack([d.y for d in nodes])}
-    items = pipeline.FederatedBatcher(nodes, 32, 10, seed=0).node_items()
+    items = pipeline.FederatedBatcher(nodes, 32, local_steps,
+                                      seed=0).node_items()
     return data, items
 
 
-def reset_counts(cm, cs) -> None:
-    for fn in (cm.flat_mix, cm.flat_consensus, cs.cnd_bitmaps,
-               cs.cnd_popcount):
+def counted():
+    """Every kernel wrapper with a launch count, by kernel name."""
+    from repro_torch.kernels import cluster_mix, cnd_sketch, consensus_mix
+    from repro_torch.kernels import sparse_mix
+    return {"flat_mix": consensus_mix.flat_mix,
+            "flat_consensus": consensus_mix.flat_consensus,
+            "cnd_bitmaps": cnd_sketch.cnd_bitmaps,
+            "cnd_popcount": cnd_sketch.cnd_popcount,
+            "sparse_mix": sparse_mix.sparse_mix,
+            "cluster_mix": cluster_mix.cluster_mix}
+
+
+def reset_counts() -> None:
+    for fn in counted().values():
         fn.launches = 0
 
 
-def read_counts(cm, cs) -> dict:
-    return {"flat_mix": cm.flat_mix.launches,
-            "flat_consensus": cm.flat_consensus.launches,
-            "cnd_bitmaps": cs.cnd_bitmaps.launches,
-            "cnd_popcount": cs.cnd_popcount.launches}
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counted().items()}
+
+
+def device_profile(prof) -> tuple[dict, int]:
+    """Device busy milliseconds by kernel name, and the event count."""
+    busy, n_dev = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "")
+            name = name.replace("void ", "").split("(")[0][:70]
+            busy[name] = busy.get(name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+            n_dev += 1
+    return busy, n_dev
 
 
 def main() -> None:
@@ -129,12 +179,18 @@ def main() -> None:
           f"{torch.__version__} cuda={torch.version.cuda}", flush=True)
 
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch import mobility
+    from repro_torch.configs.base import (FedConfig, HierarchyConfig,
+                                          MobilityConfig, TrainConfig)
     from repro_torch.configs.paper_models import MLP_CONFIG
-    from repro_torch.core import cdfl
+    from repro_torch.core import cdfl, transport
+    from repro_torch.core.cdfl import round_slice
+    from repro_torch.hierarchy import mixing as hier
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import cluster_mix as clm
     from repro_torch.kernels import cnd_sketch as cs
     from repro_torch.kernels import consensus_mix as cm
+    from repro_torch.kernels import sparse_mix as sm
     from repro_torch.models import simple
 
     # -- 2. build ---------------------------------------------------------
@@ -152,29 +208,78 @@ def main() -> None:
     data256, items256 = node_arrays(paper_nodes(256))
     print(f"data K=256 built in {time.perf_counter() - t0:.1f}s "
           f"({data256['x'].nbytes / 1e6:.0f} MB of inputs)", flush=True)
+    t0 = time.perf_counter()
+    data1024, items1024 = node_arrays(paper_nodes(FLEET_K, n=96))
+    data64, items64 = node_arrays(paper_nodes(64, n=96))
+    print(f"data K={FLEET_K} built in {time.perf_counter() - t0:.1f}s "
+          f"({data1024['x'].nbytes / 1e6:.0f} MB of inputs)", flush=True)
+
+    # -- 2b. the K=1024 fleet's per-round mixing stacks, built once -------
+    # Manhattan mobility (benchmarks/paper_tables.py MOBILITY_SCENARIOS),
+    # cdfl, bf16 wire; sparse top-8 and hierarchical. The host builds the
+    # whole horizon once (traces, links, clusters, leaders) before any
+    # timed window; the path phases below slice it.
+    loss = simple.make_mlp_loss(MLP_CONFIG)
+    train = TrainConfig(learning_rate=1e-3, batch_size=32)
+    p0 = simple.mlp_init(torch.Generator().manual_seed(0), MLP_CONFIG,
+                         device="cpu")
+    fleet_feds = {
+        "sparse": FedConfig(num_nodes=FLEET_K, gamma=0.5, local_steps=10,
+                            wire_dtype="bf16", mixing_format="sparse",
+                            degree=8, mobility=MobilityConfig(**MANHATTAN)),
+        "hierarchical": FedConfig(
+            num_nodes=FLEET_K, gamma=0.5, local_steps=10, wire_dtype="bf16",
+            mixing_format="hierarchical",
+            hierarchy=HierarchyConfig(max_cluster_size=16, inter_degree=4,
+                                      remerge_burst=1),
+            mobility=MobilityConfig(**MANHATTAN))}
+    fleet = {}
+    for fmt, fed in fleet_feds.items():
+        tr = cdfl.build_trainer(loss, fed, train)
+        state = tr.init(p0, items1024)
+        t0 = time.perf_counter()
+        etas, gammas = tr.mixing_stack(state, FLEET_ROUNDS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fleet[fmt] = (tr, etas, gammas)
+        if fmt == "sparse":
+            shape = f"idx {tuple(etas.idx.shape)}"
+        else:
+            shape = (f"intra {tuple(etas.intra.idx.shape)} inter "
+                     f"{tuple(etas.inter.idx.shape)} clusters/round "
+                     f"{[len(set(c.tolist())) for c in etas.cluster]} "
+                     f"burst rounds "
+                     f"{[r for r, b in enumerate(etas.burst) if b > 0]}")
+        print(f"stacks {fmt} K={FLEET_K} R={FLEET_ROUNDS} built in "
+              f"{build_s:.2f}s on the host (trace, links"
+              f"{', clusters, leaders' if fmt != 'sparse' else ''}, "
+              f"weights): {shape}", flush=True)
 
     # -- 3. every kernel against its plain version ------------------------
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def record(name, shape, err, fn, plain_fn, lib_fn, nbytes, ops, rate):
+    def record(name, shape, err, fn, plain_fn, lib_fn, nbytes, ops, rate,
+               lib_graph=True, extra=None):
         b_ms, b_by = bound(nbytes, ops, rate)
         ms, graph_ms = timing(fn)
         plain_ms, plain_graph_ms = timing(plain_fn)
-        lib_ms, lib_graph_ms = timing(lib_fn) if lib_fn else (None, None)
+        lib_ms, lib_graph_ms = (timing(lib_fn, graph=lib_graph) if lib_fn
+                                else (None, None))
         fmt = lambda v: "null" if v is None else f"{v:.5f}"
+        more = "".join(f" {k}={v}" for k, v in (extra or {}).items())
         print(f"kernel {name} {shape} max_abs_err={err:.3e} ms={ms:.5f} "
               f"graph_ms={graph_ms:.5f} plain_ms={plain_ms:.5f} "
               f"plain_graph_ms={plain_graph_ms:.5f} library_ms="
               f"{fmt(lib_ms)} library_graph_ms={fmt(lib_graph_ms)} "
-              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.5f} ({b_by}){more}", flush=True)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row.update(shape=shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
                    plain_graph_ms=plain_graph_ms, library_ms=lib_ms,
                    library_graph_ms=lib_graph_ms, bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, **(extra or {}))
 
     for k in (4, 256):
         master = torch.randn((k, P), generator=gen, device=dev)
@@ -239,57 +344,148 @@ def main() -> None:
                lambda: ref.cnd_popcount(bm), None,
                4 * k * h * m // 32 + 4 * k * h, 2 * k * h * m // 32,
                INT32_OPS_PER_S)
-    print("kernels all four agree with their plain versions "
-          f"(B1/B2 rtol={RTOL} atol={ATOL}, B3/B4 bit for bit)", flush=True)
+
+    # B5/B6 on the K=1024 fleet's round-0 neighbor tables. The yardstick
+    # is torch.sparse.mm of the same eta in CSR form times the f32 wire:
+    # the neighbor sum only, without the delta form.
+    def csr(idx, val):
+        k, d = idx.shape
+        rows_ = torch.arange(k, device=dev).repeat_interleave(d)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows_, idx.reshape(-1).long()]), val.reshape(-1),
+            (k, k), check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+    def gather_bytes(k, d, wire):
+        """(each input read once, every gathered row from HBM): tables,
+        the f32 master, the wire (its self row plus D gathered rows), the
+        f32 output. An f32 wire on the path IS the master buffer, so read
+        once it adds nothing."""
+        e = wire.element_size()
+        once = 8 * k * d + (4 + (0 if wire is master else e) + 4) * k * P
+        gather = 8 * k * d + (4 + e * (d + 1) + 4) * k * P
+        return once, gather
+
+    def check(name, out, want):
+        torch.cuda.synchronize()
+        if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
+            fail(f"{name} disagrees with its plain version: max |diff| "
+                 f"{(out - want).abs().max().item():.3e}")
+        return (out - want).abs().max().item()
+
+    master = torch.randn((FLEET_K, P), generator=gen, device=dev)
+    sp0 = round_slice(fleet["sparse"][1], 0)
+    h0 = round_slice(fleet["hierarchical"][1], 0)
+    b5_cases = [  # (label, table, gamma, wire dtype); the path's shape last
+        ("sparse tier", sp0, fleet["sparse"][2][0:1], torch.float32),
+        ("hierarchical inter tier", h0.inter,
+         fleet["hierarchical"][2][0:1], torch.float32),
+        ("sparse tier", sp0, fleet["sparse"][2][0:1], torch.bfloat16)]
+    for label, table, gamma, wdt in b5_cases:
+        wire = master if wdt == torch.float32 else master.to(wdt)
+        idx, val = table
+        out = sm.sparse_mix(idx, val, master, wire, gamma)
+        err = check(f"sparse_mix {label} wire={wdt}", out,
+                    ref.sparse_mix(idx, val, master, wire, gamma))
+        k, d = idx.shape
+        once, gather = gather_bytes(k, d, wire)
+        a_csr, w32 = csr(idx, val), wire.float()
+        record("sparse_mix", f"K={k} D={d} P={P} wire={str(wdt)[6:]} "
+               f"({label}, Manhattan round 0)", err,
+               lambda: sm.sparse_mix(idx, val, master, wire, gamma),
+               lambda: ref.sparse_mix(idx, val, master, wire, gamma),
+               lambda: torch.sparse.mm(a_csr, w32), once,
+               2 * k * d * P + 4 * k * P, F32_OPS_PER_S, lib_graph=False,
+               extra={"bytes_once": once, "bytes_gather": gather,
+                      "library": "torch.sparse.mm(csr eta, f32 wire), "
+                                 "neighbor sum only"})
+    idx, val = h0.intra
+    k, d = idx.shape
+    gnode = h0.gamma_node
+    other = torch.randn((FLEET_K, P), generator=gen, device=dev)
+    for wdt in (torch.float32, torch.bfloat16):
+        # the separate self payload, checked with a wire that differs
+        wire, wself = other.to(wdt), master.to(wdt)
+        check(f"cluster_mix wire={wdt} (separate self payload)",
+              clm.cluster_mix(idx, val, master, wself, wire, gnode),
+              ref.cluster_mix(idx, val, master, wself, wire, gnode))
+    for wdt, label in ((torch.float32, "re-merge burst pass"),
+                       (torch.bfloat16, "intra tier")):
+        wire = master if wdt == torch.float32 else master.to(wdt)
+        out = clm.cluster_mix(idx, val, master, wire, wire, gnode)
+        err = check(f"cluster_mix wire={wdt}", out,
+                    ref.cluster_mix(idx, val, master, wire, wire, gnode))
+        once, gather = gather_bytes(k, d, wire)
+        a_csr, w32 = csr(idx, val), wire.float()
+        record("cluster_mix", f"K={k} Di={d} P={P} wire={str(wdt)[6:]} "
+               f"({label}, per-node gamma, Manhattan round 0)", err,
+               lambda: clm.cluster_mix(idx, val, master, wire, wire, gnode),
+               lambda: ref.cluster_mix(idx, val, master, wire, wire, gnode),
+               lambda: torch.sparse.mm(a_csr, w32), once,
+               2 * k * d * P + 4 * k * P, F32_OPS_PER_S, lib_graph=False,
+               extra={"bytes_once": once, "bytes_gather": gather,
+                      "library": "torch.sparse.mm(csr eta, f32 wire), "
+                                 "neighbor sum only"})
+    del master, other
+    print("kernels all six agree with their plain versions "
+          f"(B1/B2/B5/B6 rtol={RTOL} atol={ATOL}, B3/B4 bit for bit)",
+          flush=True)
 
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
-    loss = simple.make_mlp_loss(MLP_CONFIG)
-    train = TrainConfig(learning_rate=1e-3, batch_size=32)
-    p0 = simple.mlp_init(torch.Generator().manual_seed(0), MLP_CONFIG,
-                         device="cpu")
-    totals = {name: 0 for name in read_counts(cm, cs)}
+    totals = {name: 0 for name in read_counts()}
+    dense_only = {"sparse_mix": 0, "cluster_mix": 0}
 
-    def drive(fed, rounds, seed, expect):
-        idx = torch.randint(0, 320, (rounds, fed.num_nodes, fed.local_steps,
-                                     train.batch_size),
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] += c
+
+    def expect_counts(label, counts, expect):
+        for name, want in expect.items():
+            if counts[name] != want:
+                fail(f"{label}: {name} launched {counts[name]} times on the "
+                     f"path, expected {want}")
+
+    def drive(fed, rounds, seed, expect, data, items, check_loss=True):
+        n = data["x"].shape[1]
+        idx = torch.randint(0, n, (rounds, fed.num_nodes, fed.local_steps,
+                                   train.batch_size),
                             generator=torch.Generator().manual_seed(seed))
         tr = cdfl.build_trainer(loss, fed, train)
         # one round first, so the timed run does not pay for loading
         # every kernel of the path on its first use
-        tr.run_rounds(tr.init(p0, items4), data4, 1, idx=idx[:1])
-        reset_counts(cm, cs)
-        state = tr.init(p0, items4)
+        tr.run_rounds(tr.init(p0, items), data, 1, idx=idx[:1])
+        reset_counts()
+        state = tr.init(p0, items)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        final, metrics = tr.run_rounds(state, data4, rounds, idx=idx)
+        final, metrics = tr.run_rounds(state, data, rounds, idx=idx)
         torch.cuda.synchronize()
         round_ms = 1e3 * (time.perf_counter() - t0) / rounds
-        counts = read_counts(cm, cs)
-        for name, want in expect.items():
-            if counts[name] != want:
-                fail(f"{fed.algorithm}: {name} launched {counts[name]} "
-                     f"times on the path, expected {want}")
-        for name, c in counts.items():
-            totals[name] += c
+        counts = read_counts()
+        if expect is not None:
+            expect_counts(f"{fed.algorithm}/{fed.mixing_format}", counts,
+                          expect)
+            add(counts)
         tr_cpu = cdfl.build_trainer(loss, fed, train, device="cpu")
-        state_cpu = tr_cpu.init(p0, items4)
-        final_cpu, metrics_cpu = tr_cpu.run_rounds(state_cpu, data4, rounds,
+        state_cpu = tr_cpu.init(p0, items)
+        final_cpu, metrics_cpu = tr_cpu.run_rounds(state_cpu, data, rounds,
                                                    idx=idx)
         if not torch.equal(state.ratios.cpu(), state_cpu.ratios):
             fail(f"{fed.algorithm}: ratios differ between card and CPU")
         diff = (final.buf.cpu() - final_cpu.buf).abs().max().item()
         if not diff <= 1e-4:
-            fail(f"{fed.algorithm}: card params differ from the CPU run by "
-                 f"{diff:.3e} > 1e-4")
+            fail(f"{fed.algorithm}/{fed.mixing_format}: card params differ "
+                 f"from the CPU run by {diff:.3e} > 1e-4")
         lossr = metrics["loss"].mean(dim=1).cpu()
-        if not torch.isfinite(lossr).all() or not lossr[-1] < lossr[0]:
+        if not torch.isfinite(lossr).all() or (check_loss
+                                               and not lossr[-1] < lossr[0]):
             fail(f"{fed.algorithm}: loss did not fall: {lossr.tolist()}")
         return state, metrics, counts, diff, round_ms
 
     fed = FedConfig(num_nodes=4, topology="ring", gamma=0.5, local_steps=10)
     state, metrics, counts, diff, round_ms = drive(
         fed, 10, 1, {"flat_mix": 10, "flat_consensus": 0, "cnd_bitmaps": 1,
-                     "cnd_popcount": 1})
+                     "cnd_popcount": 1, **dense_only}, data4, items4)
     lossr = [round(v, 4) for v in metrics["loss"].mean(dim=1).tolist()]
     dis = [f"{v:.2e}" for v in metrics["disagreement"].tolist()]
     print(f"path cdfl K=4 ratios={[round(v, 4) for v in state.ratios.tolist()]}"
@@ -302,16 +498,29 @@ def main() -> None:
                     algorithm="fedavg")
     _, metrics, counts, diff, round_ms = drive(
         fed, 3, 2, {"flat_mix": 0, "flat_consensus": 3, "cnd_bitmaps": 1,
-                    "cnd_popcount": 1})
+                    "cnd_popcount": 1, **dense_only}, data4, items4)
     print(f"path fedavg K=4 loss/round="
           f"{[round(v, 4) for v in metrics['loss'].mean(dim=1).tolist()]} "
           f"launches={counts} card-vs-cpu max|param diff|={diff:.3e} "
           f"card ms/round={round_ms:.3f}", flush=True)
 
+    def profiled(tr, state, data_dev, gen_idx, **kw):
+        """One round under the profiler: (state, wall ms, busy by kernel,
+        device event count)."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx,
+                                     **kw)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        return (state, prof_ms) + device_profile(prof)
+
     # -- 6. fleet at K=256, bf16 wire -------------------------------------
     fed = FedConfig(num_nodes=256, topology="ring", gamma=0.5,
                     local_steps=10, wire_dtype="bf16")
-    reset_counts(cm, cs)
+    reset_counts()
     tr = cdfl.build_trainer(loss, fed, train)
     state = tr.init(p0, items256)
     data_dev = {name: torch.as_tensor(v, device=dev)
@@ -324,33 +533,19 @@ def main() -> None:
     torch.cuda.synchronize()
     round_ms = 1e3 * (time.perf_counter() - t0) / 5
     # one more round under the profiler: device busy time by kernel
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx)
-        torch.cuda.synchronize()
-        prof_ms = 1e3 * (time.perf_counter() - t0)
-    counts = read_counts(cm, cs)
-    if counts != {"flat_mix": 7, "flat_consensus": 0, "cnd_bitmaps": 1,
-                  "cnd_popcount": 1}:
-        fail(f"fleet: unexpected launches {counts}")
-    for name, c in counts.items():
-        totals[name] += c
+    state, prof_ms, busy, n_dev = profiled(tr, state, data_dev, gen_idx)
+    counts = read_counts()
+    expect_counts("fleet K=256", counts, {
+        "flat_mix": 7, "flat_consensus": 0, "cnd_bitmaps": 1,
+        "cnd_popcount": 1, **dense_only})
+    add(counts)
     if not torch.isfinite(metrics["loss"]).all():
         fail("fleet: non-finite loss")
-    busy, n_dev = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.name.replace("(anonymous namespace)::", "")
-            name = name.replace("void ", "").split("(")[0][:70]
-            busy[name] = busy.get(name, 0.0) + \
-                ev.time_range.elapsed_us() / 1e3
-            n_dev += 1
     busy_ms = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
     b1_ms = sum(v for n, v in busy.items()
-                if "mix_kernel<" in n and ", true," in n)
+                if "mix_kernel<" in n and ", true," in n
+                and "gather" not in n)
     print(f"path fleet K=256 wire=bf16 ms/round={round_ms:.3f} "
           f"loss={metrics['loss'].mean().item():.4f} launches={counts}",
           flush=True)
@@ -359,6 +554,136 @@ def main() -> None:
           f"B1_ms={b1_ms:.4f} B1_share_of_wall={b1_ms / prof_ms:.4f} "
           f"device_events={n_dev} top="
           f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+    del data_dev
+
+    # -- 6a. the twin of examples/mobility_platoon.py: K=8, dense ---------
+    platoon = MobilityConfig(**PLATOON)
+    nodes8 = [synthetic_nodes(i) for i in range(8)]
+    data8, items8 = node_arrays(nodes8, local_steps=5)
+    adj = mobility.adjacency_stack(platoon, 20, 8)
+    comps = [mobility.num_components(a) for a in adj]
+    fed = FedConfig(num_nodes=8, gamma=0.5, local_steps=5, mobility=platoon)
+    _, metrics, counts, diff, round_ms = drive(
+        fed, 20, 4, {"flat_mix": 20, "flat_consensus": 0, "cnd_bitmaps": 1,
+                     "cnd_popcount": 1, **dense_only}, data8, items8,
+        check_loss=False)
+    lossr = metrics["loss"].mean(dim=1)
+    print(f"path platoon K=8 dense components/round={comps} "
+          f"churn={mobility.handover_stats(adj)['churn_rate']:.4f} "
+          f"loss/round[0,5,10,15,19]="
+          f"{[round(lossr[r].item(), 4) for r in (0, 5, 10, 15, 19)]} "
+          f"gamma/round={[round(g, 4) for g in metrics['gamma'].tolist()]} "
+          f"launches={counts} card-vs-cpu max|param diff|={diff:.3e} "
+          f"card ms/round={round_ms:.3f}", flush=True)
+
+    # -- 6b/6c. the K=1024 Manhattan fleet: sparse, then hierarchical -----
+    # B1 bound at this K: what the dense exchange would at best take
+    dense_ms, dense_by = bound(4 * FLEET_K * FLEET_K + 10 * FLEET_K * P,
+                               2 * FLEET_K * FLEET_K * P + 4 * FLEET_K * P,
+                               F32_OPS_PER_S)
+    data_dev = {name: torch.as_tensor(v, device=dev)
+                for name, v in data1024.items()}
+    for fmt, (tr, etas, gammas) in fleet.items():
+        gen_idx = torch.Generator().manual_seed(5)
+
+        def rounds(state, lo, hi):
+            return tr.run_rounds(state, data_dev, hi - lo, generator=gen_idx,
+                                 eta_stack=round_slice(etas, slice(lo, hi)),
+                                 gamma_stack=gammas[lo:hi])
+
+        reset_counts()
+        state = tr.init(p0, items1024)
+        state, _ = rounds(state, 0, 1)                  # warm-up round
+        times, losses = [], []
+        for rep in range(3):
+            lo = 1 + 5 * rep
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = rounds(state, lo, lo + 5)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0) / 5)
+            losses.append(metrics["loss"].mean().item())
+        counts = read_counts()
+        timed = FLEET_ROUNDS - 1
+        expect = {"flat_mix": 0, "flat_consensus": 0, "cnd_bitmaps": 1,
+                  "cnd_popcount": 1, "sparse_mix": timed, "cluster_mix": 0}
+        if fmt == "hierarchical":
+            bursts = int(etas.burst[:timed].sum().item())
+            expect["cluster_mix"] = (timed + fleet_feds[fmt].hierarchy
+                                     .remerge_burst * bursts)
+        expect_counts(f"fleet {fmt} K={FLEET_K}", counts, expect)
+        add(counts)
+        if not all(np.isfinite(losses)):
+            fail(f"fleet {fmt}: non-finite loss {losses}")
+        extra = ""
+        if fmt == "hierarchical":
+            extra = (f" clusters/round={metrics['clusters'].tolist()} "
+                     f"gamma_intra/round="
+                     f"{[round(g, 4) for g in metrics['gamma_intra'].tolist()]}"
+                     f" burst_rounds={bursts}")
+        print(f"path fleet {fmt} K={FLEET_K} wire=bf16 Manhattan "
+              f"ms/round median={statistics.median(times):.3f} "
+              f"spread={max(times) - min(times):.3f} repeats="
+              f"{[round(t, 3) for t in times]} loss/repeat="
+              f"{[round(v, 4) for v in losses]} gamma="
+              f"{[round(g, 4) for g in metrics['gamma'].tolist()]} "
+              f"launches={counts}{extra}", flush=True)
+        # the exchange alone (the wire cast and the gather kernels) on
+        # round 0's stack, beside the dense B1 bound at this K
+        eta0, g0 = round_slice(etas, 0), gammas[0]
+        buf = state.buf
+        if fmt == "sparse":
+            dense_t = transport.DenseTransport(wire_dtype="bf16")
+            ex_ms, ex_graph_ms = timing(
+                lambda: dense_t.exchange(buf, eta0, g0))
+        else:
+            def two_tier():
+                w = buf.to(torch.bfloat16)
+                return hier.hier_mix_flat(buf, eta0, g0, wire=w, wire_self=w,
+                                          burst_passes=1)
+            ex_ms, ex_graph_ms = timing(two_tier)
+        state, prof_ms, busy, n_dev = profiled(
+            tr, state, data_dev, gen_idx,
+            eta_stack=round_slice(etas, slice(timed, timed + 1)),
+            gamma_stack=gammas[timed:])
+        busy_ms = sum(busy.values())
+        gather_ms = sum(v for n, v in busy.items() if "gather_mix" in n)
+        b1_ms = sum(v for n, v in busy.items()
+                    if "mix_kernel<" in n and "gather" not in n)
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        print(f"exchange {fmt} K={FLEET_K} round 0: ms={ex_ms:.5f} "
+              f"graph_ms={ex_graph_ms:.5f} dense_B1_bound_ms={dense_ms:.5f} "
+              f"({dense_by})", flush=True)
+        print(f"profile fleet {fmt} round {timed}: wall_ms={prof_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} busy_share="
+              f"{busy_ms / prof_ms:.4f} gather_kernels_ms={gather_ms:.4f} "
+              f"B1_ms={b1_ms:.4f} device_events={n_dev} top="
+              f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+    del data_dev
+
+    # each fleet format on the card against the CPU at K=64, 3 rounds;
+    # the f32 wire is the gate (a bf16 wire drifts by whole bf16 steps
+    # between summation orders, ROADMAP C), the bf16 wire is reported
+    for fmt, fed in fleet_feds.items():
+        for wire in ("f32", "bf16"):
+            small = dataclasses.replace(fed, num_nodes=64, wire_dtype=wire)
+            if wire == "f32":
+                _, metrics, _, diff, _ = drive(small, 3, 6, None, data64,
+                                               items64, check_loss=False)
+                print(f"check {fmt} K=64 wire=f32 card-vs-cpu "
+                      f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+                continue
+            idx = torch.randint(0, 96, (2, 64, 10, 32),
+                                generator=torch.Generator().manual_seed(7))
+            outs = []
+            for device in (None, "cpu"):
+                tr = cdfl.build_trainer(loss, small, train, device=device)
+                final, _ = tr.run_rounds(tr.init(p0, items64), data64, 2,
+                                         idx=idx)
+                outs.append(final.buf.cpu())
+            print(f"check {fmt} K=64 wire=bf16 2 rounds card-vs-cpu "
+                  f"max|param diff|={(outs[0] - outs[1]).abs().max():.3e} "
+                  f"(reported, not gated)", flush=True)
 
     # -- 7. kernel table --------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",
@@ -368,7 +693,11 @@ def main() -> None:
                "cnd_bitmaps": ("src/repro_torch/csrc/cnd_sketch.cu",
                                "src/repro/kernels/cnd_sketch.py:77"),
                "cnd_popcount": ("src/repro_torch/csrc/cnd_sketch.cu",
-                                "src/repro/kernels/cnd_sketch.py:102")}
+                                "src/repro/kernels/cnd_sketch.py:102"),
+               "sparse_mix": ("src/repro_torch/csrc/sparse_mix.cu",
+                              "src/repro/kernels/sparse_mix.py:92"),
+               "cluster_mix": ("src/repro_torch/csrc/sparse_mix.cu",
+                               "src/repro/kernels/cluster_mix.py:95")}
     table = []
     for name, (source, replaces) in sources.items():
         row = rows[name]
@@ -380,7 +709,10 @@ def main() -> None:
                       "library_ms": row["library_ms"], "shape": row["shape"],
                       "graph_ms": row["graph_ms"],
                       "plain_graph_ms": row["plain_graph_ms"],
-                      "library_graph_ms": row["library_graph_ms"]})
+                      "library_graph_ms": row["library_graph_ms"],
+                      **{key: row[key] for key in ("bytes_once",
+                                                   "bytes_gather", "library")
+                         if key in row}})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,11 @@
 """Configuration dataclasses of the port.
 
-``FedConfig``, ``TrainConfig``, ``MeshConfig`` and ``RunConfig`` keep every
-field name and default of the JAX package's configs, so a config reads the
-same in both. The sub-configs that default to ``None`` (mobility, faults,
-hierarchy, ingest) are kept as fields; the port does not run them yet, and
-``build_trainer`` refuses a config that sets them.
+``FedConfig``, ``MobilityConfig``, ``HierarchyConfig``, ``TrainConfig``,
+``MeshConfig`` and ``RunConfig`` keep every field name and default of the
+JAX package's configs, so a config reads the same in both. The
+sub-configs the port does not run yet (faults, ingest) are kept as
+``FedConfig`` fields, and ``build_trainer`` refuses a config that sets
+them.
 """
 from __future__ import annotations
 
@@ -51,6 +52,47 @@ class FedConfig:
     def __post_init__(self):
         from repro_torch.registry import validate_fed_config
         validate_fed_config(self)
+
+
+@dataclass(frozen=True)
+class MobilityConfig:
+    """Vehicular mobility scenario: per-round radio-range topologies
+    (:mod:`repro_torch.mobility`). ``kind="static"`` disables mobility
+    (identical to ``FedConfig(mobility=None)``)."""
+
+    kind: str = "static"         # "static" or a registered mobility trace
+    radio_range: float = 250.0   # V2V radio range (m)
+    speed: float = 20.0          # mean vehicle speed (m/s)
+    speed_jitter: float = 0.3    # fractional per-vehicle speed spread
+    area: float = 1000.0         # simulation square side / road length (m)
+    dt: float = 1.0              # simulated seconds between rounds
+    seed: int = 0                # trace RNG seed (deterministic)
+    link_quality: str = "binary"  # binary | quadratic distance weighting
+    min_quality: float = 0.05    # weighted links below this are dropped
+
+    def __post_init__(self):
+        from repro_torch.registry import validate_mobility_config
+        validate_mobility_config(self)
+
+
+@dataclass(frozen=True)
+class HierarchyConfig:
+    """Hierarchical cluster consensus knobs (:mod:`repro_torch.hierarchy`),
+    selected by ``FedConfig(mixing_format="hierarchical")``."""
+
+    max_cluster_size: int = 16       # proximity-split cap per cluster
+    leader_policy: str = "degree"    # registered leader_policies name
+    inter_degree: int = 4            # leader tier: top-D adjacent clusters
+    hysteresis: bool = True          # sticky membership across rounds
+    # intra-tier mixing rule; None -> FedConfig.mixing
+    intra_rule: Optional[str] = None
+    # extra intra passes on rounds where clusters re-merge (post-
+    # partition consensus burst; 0 disables)
+    remerge_burst: int = 1
+
+    def __post_init__(self):
+        from repro_torch.registry import validate_hierarchy_config
+        validate_hierarchy_config(self)
 
 
 @dataclass(frozen=True)

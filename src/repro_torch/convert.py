@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.core import flatten
 from repro_torch.core.cdfl import FedState
+from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
+from repro_torch.hierarchy.mixing import HierEta
 from repro_torch.optim.adam import FlatAdamState
 
 
@@ -54,3 +56,29 @@ def state_from_numpy(state, device=None) -> FedState:
     ratios = torch.tensor(np.asarray(state.ratios), **f32)
     sizes = torch.tensor(np.asarray(state.sizes), **f32)
     return FedState(buf, layout, opt, ratios, sizes, int(state.round))
+
+
+def sparse_eta_from_numpy(sp, device=None) -> SparseEta:
+    """A JAX package ``SparseEta`` (read by field name ``idx``/``val``,
+    any leading stack axes) -> the port's: int32 indices, f32 weights.
+    ``run_rounds`` checks the indices when it takes the stack."""
+    dev = resolve_device(device)
+    return SparseEta(torch.tensor(np.asarray(sp.idx).astype(np.int32),
+                                  device=dev),
+                     torch.tensor(np.asarray(sp.val, np.float32),
+                                  device=dev))
+
+
+def hier_eta_from_numpy(h, device=None) -> HierEta:
+    """A JAX package ``HierEta`` (read by field name) -> the port's: int64
+    cluster ids, both tiers through :func:`sparse_eta_from_numpy`, and the
+    re-merge flags kept on the host."""
+    dev = resolve_device(device)
+    return HierEta(
+        cluster=torch.tensor(np.asarray(h.cluster).astype(np.int64),
+                             device=dev),
+        intra=sparse_eta_from_numpy(h.intra, dev),
+        gamma_node=torch.tensor(np.asarray(h.gamma_node, np.float32),
+                                device=dev),
+        inter=sparse_eta_from_numpy(h.inter, dev),
+        burst=torch.tensor(np.asarray(h.burst, np.float32)))

@@ -2,8 +2,11 @@
 
 One federated round =
   1. the eq. 5 consensus exchange with CND-derived weights (eqs. 5-7) on
-     the flat ``(K, P)`` buffer: kernel B1 through the transport (cdfl,
-     cfa, metropolis), or the fedavg server average through kernel B2;
+     the flat ``(K, P)`` buffer, through the transport (cdfl, cfa,
+     metropolis) or the fedavg server average (kernel B2). The weights
+     come in three formats (``FedConfig.mixing_format``): dense ``(K, K)``
+     eta (kernel B1), sparse top-D :class:`topology.SparseEta` (kernel B5),
+     or two-tier :class:`hierarchy.mixing.HierEta` (kernels B6 and B5);
   2. ``local_steps`` flat-Adam updates (eq. 8) on minibatches gathered on
      the device from the resident datasets.
 
@@ -13,12 +16,15 @@ summed per-node losses IS the ``(K, P)`` flat gradient (node parameters
 are disjoint). ``init`` sketches every node's data in one launch of
 kernel B3 and reads the bit counts through kernel B4.
 
-``run_rounds`` is a Python loop over rounds. It takes an explicit
+``run_rounds`` is a Python loop over rounds. Round r's exchange reads
+slice r of per-round mixing stacks (:func:`mixing_stack`): the static
+graph broadcast, or a mobility scenario's radio-range graphs re-derived
+every round. Stacks are keyed on the absolute round ``state.round``, so
+two segments of a run equal one unsegmented run. It takes an explicit
 ``(R, K, S, B)`` batch-index stack, so a run can replay the JAX
 package's batches exactly, or samples one from a ``torch.Generator``.
 
-This slice ports the static dense pipeline for cdfl, cfa, metropolis and
-fedavg; ``build_trainer`` refuses what it does not run yet (see
+``build_trainer`` refuses what the port does not run yet (see
 :data:`repro_torch.registry.NOT_PORTED`).
 """
 from __future__ import annotations
@@ -27,11 +33,13 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import mobility as mobility_lib
 from repro_torch import registry
-from repro_torch.configs.base import FedConfig, TrainConfig
+from repro_torch.configs.base import FedConfig, HierarchyConfig, TrainConfig
 from repro_torch.core import flatten, sketch, topology
 from repro_torch.core import transport as transport_lib
 from repro_torch.device import resolve_device
+from repro_torch.hierarchy import mixing as hier_lib
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import FlatAdamState, flat_adam
 
@@ -53,9 +61,28 @@ class FedState(NamedTuple):
 
 class Trainer(NamedTuple):
     init: Callable                # (params, node_items) -> FedState
-    mixing: Callable              # state -> ((K, K) eta, gamma)
+    mixing: Callable              # state -> static (eta, gamma)
     run_rounds: Callable          # (state, data, R[, idx]) -> (state, metrics)
     device: torch.device
+    # (state, R, start) -> per-round (etas, (R,) gammas): dense (R, K, K),
+    # SparseEta (R, K, D) or HierEta stacks
+    mixing_stack: Callable
+
+
+def round_slice(stack, r):
+    """Round ``r`` (an int or a slice of rounds) of a per-round stack: a
+    tensor, or a NamedTuple of them (SparseEta, HierEta) sliced field by
+    field."""
+    if isinstance(stack, torch.Tensor):
+        return stack[r]
+    return type(stack)(*(round_slice(f, r) for f in stack))
+
+
+def _check_indices(idx: torch.Tensor, k: int, what: str) -> None:
+    """Neighbor indices must name a node: the kernels gather without a
+    range check. Checked once per stack, never per launch."""
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= k):
+        raise ValueError(f"{what} indices must lie in [0, {k})")
 
 
 def _node_sketches(node_items: torch.Tensor, fed: FedConfig):
@@ -71,7 +98,7 @@ def _node_sketches(node_items: torch.Tensor, fed: FedConfig):
 
 
 def _refuse_unported(fed: FedConfig) -> None:
-    for name in ("mobility", "faults", "robust", "ingest"):
+    for name in ("faults", "robust", "ingest"):
         if getattr(fed, name) is not None:
             raise NotImplementedError(
                 f"FedConfig.{name} is not ported to repro_torch yet: "
@@ -98,7 +125,22 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
     spec = registry.algorithms.get(fed.algorithm)
     k = fed.num_nodes
     topo = "full" if fed.algorithm == "fedavg" else fed.topology
-    adj = torch.as_tensor(topology.adjacency(topo, k), device=dev)
+    adj_np = topology.adjacency(topo, k)
+    adj = torch.as_tensor(adj_np, device=dev)
+    mob = fed.mobility
+    if mob is not None and mob.kind == "static":
+        mob = None
+    if mob is not None and fed.algorithm == "fedavg":
+        # a server average has no inter-vehicle links to churn
+        raise ValueError("fedavg (centralized server average) does not "
+                         "model a vehicular topology; mobility requires "
+                         "a decentralized algorithm")
+    sparse_fmt = fed.mixing_format == "sparse"
+    # hierarchy knobs default when the format is selected bare; the intra
+    # tier inherits the algorithm's mixing rule unless pinned
+    hier_cfg = ((fed.hierarchy or HierarchyConfig())
+                if fed.mixing_format == "hierarchical" else None)
+    hier_rule = (hier_cfg.intra_rule or spec.mixing) if hier_cfg else None
     if spec.uses_transport:
         transport = transport_lib.make_transport(fed)
     else:
@@ -137,9 +179,121 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate)
 
     def mixing(state: FedState):
+        """The static graph's weights in the config's format, and gamma."""
+        if hier_cfg is not None:
+            return hier_lib.hier_static_stacks(
+                adj_np, rule=hier_rule, ratios=state.ratios,
+                sizes=state.sizes, gamma_cap=fed.gamma,
+                max_cluster_size=hier_cfg.max_cluster_size,
+                leader_policy=hier_cfg.leader_policy,
+                inter_degree=hier_cfg.inter_degree,
+                hysteresis=hier_cfg.hysteresis)
         eta = topology.mixing_weights(adj, spec.mixing, ratios=state.ratios,
                                       sizes=state.sizes)
-        return eta, topology.stable_gamma(eta, fed.gamma)
+        gamma = topology.stable_gamma(eta, fed.gamma)
+        if sparse_fmt:
+            # sparsify AFTER the stability bound: the top-D renorm keeps
+            # the row sums, so the dense bound is the sparse one's
+            return topology.sparsify_eta(eta, fed.degree), gamma
+        return eta, gamma
+
+    def mixing_stack(state: FedState, num_rounds: int, start: int = 0):
+        """Per-round weights for rounds ``[start, start + num_rounds)``:
+        dense ``(R, K, K)`` eta, a ``SparseEta`` with ``(R, K, D)`` stacks
+        or a ``HierEta``, and ``(R,)`` gamma. The static graph is
+        broadcast; a mobility scenario re-derives the radio-range graph
+        every round from the trace generated from round 0. Host work
+        (traces, links, clusters) happens here, once per call."""
+        if mob is None:
+            eta, gamma = mixing(state)
+            if hier_cfg is not None:
+                return hier_lib.constant_hier_stacks(eta, gamma, num_rounds)
+            if sparse_fmt:
+                return mobility_lib.constant_sparse_stacks(eta, gamma,
+                                                           num_rounds)
+            return mobility_lib.constant_stacks(eta, gamma, num_rounds)
+        side = dict(ratios=state.ratios, sizes=state.sizes, start=start)
+        if hier_cfg is not None:
+            return hier_lib.hier_scenario_stacks(
+                mob, num_rounds, k, rule=hier_rule, gamma_cap=fed.gamma,
+                max_cluster_size=hier_cfg.max_cluster_size,
+                leader_policy=hier_cfg.leader_policy,
+                inter_degree=hier_cfg.inter_degree,
+                hysteresis=hier_cfg.hysteresis, **side)
+        if sparse_fmt:
+            return mobility_lib.sparse_scenario_stacks(
+                mob, num_rounds, k, rule=spec.mixing, gamma_cap=fed.gamma,
+                degree=fed.degree, **side)
+        return mobility_lib.scenario_stacks(
+            mob, num_rounds, k, rule=spec.mixing, gamma_cap=fed.gamma,
+            **side)
+
+    def explicit_stacks(eta_stack, gamma_stack):
+        """A caller's per-round stacks on the device, with gammas derived
+        from the stability bound when omitted. Indices are checked here,
+        once per stack."""
+        f32 = dict(dtype=torch.float32, device=dev)
+
+        def sparse(sp):
+            idx = torch.as_tensor(sp.idx, device=dev).to(torch.int32)
+            _check_indices(idx, k, "sparse eta")
+            return topology.SparseEta(idx.contiguous(),
+                                      torch.as_tensor(sp.val, **f32))
+
+        if isinstance(eta_stack, hier_lib.HierEta):
+            cluster = torch.as_tensor(eta_stack.cluster, device=dev).long()
+            _check_indices(cluster, k, "cluster")
+            etas = hier_lib.HierEta(
+                cluster, sparse(eta_stack.intra),
+                torch.as_tensor(eta_stack.gamma_node, **f32),
+                sparse(eta_stack.inter),
+                torch.as_tensor(eta_stack.burst, dtype=torch.float32,
+                                device="cpu"))
+            derive = hier_lib.hier_gamma_stack
+        elif isinstance(eta_stack, topology.SparseEta):
+            etas = sparse(eta_stack)
+            derive = mobility_lib.sparse_gamma_stack
+        else:
+            etas = torch.as_tensor(eta_stack, **f32)
+            derive = mobility_lib.gamma_stack
+        if gamma_stack is None:
+            return etas, derive(etas, fed.gamma)
+        return etas, torch.as_tensor(gamma_stack, **f32)
+
+    def check_stacks(etas, gammas, num_rounds: int) -> None:
+        """The reference's shape checks on per-round stacks."""
+        if isinstance(etas, hier_lib.HierEta):
+            if hier_cfg is None:
+                raise ValueError(
+                    "a hierarchical eta stack needs "
+                    "mixing_format='hierarchical'")
+            if (tuple(etas.cluster.shape) != (num_rounds, k)
+                    or tuple(etas.gamma_node.shape) != (num_rounds, k)
+                    or tuple(etas.burst.shape) != (num_rounds,)):
+                raise ValueError(
+                    f"hierarchical stack shapes cluster="
+                    f"{tuple(etas.cluster.shape)} gamma_node="
+                    f"{tuple(etas.gamma_node.shape)} burst="
+                    f"{tuple(etas.burst.shape)} != {(num_rounds, k)} / "
+                    f"{(num_rounds,)}")
+        elif hier_cfg is not None:
+            raise ValueError(
+                "mixing_format='hierarchical' needs a HierEta stack "
+                f"(got {type(etas).__name__}); build one with "
+                "repro_torch.hierarchy.mixing or omit eta_stack")
+        elif isinstance(etas, topology.SparseEta):
+            want = (num_rounds, k, etas.degree)
+            if (tuple(etas.idx.shape) != want
+                    or tuple(etas.val.shape) != want):
+                raise ValueError(
+                    f"sparse eta stack shapes idx={tuple(etas.idx.shape)} "
+                    f"val={tuple(etas.val.shape)} != {want}")
+        elif tuple(etas.shape) != (num_rounds, k, k):
+            raise ValueError(f"eta stack shape {tuple(etas.shape)} != "
+                             f"{(num_rounds, k, k)}")
+        if tuple(gammas.shape) != (num_rounds,):
+            raise ValueError(f"gamma stack shape {tuple(gammas.shape)} != "
+                             f"{(num_rounds,)}")
 
     def mix_buf(buf, sizes, eta, gamma, tstate, rnd):
         if transport is None:
@@ -147,6 +301,13 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             w = sizes / sizes.sum()
             a = w[None, :].expand(k, k).contiguous()
             return flatten.apply_matrix_flat(buf, a), tstate
+        if hier_cfg is not None:
+            # two-tier cluster consensus: the intra tier reads the wire
+            # payloads, the leader tier and the bursts the f32 buffer
+            wire = transport.wire(buf)
+            return hier_lib.hier_mix_flat(
+                buf, eta, gamma, wire=wire, wire_self=wire,
+                burst_passes=hier_cfg.remerge_burst), tstate
         return transport.exchange(buf, eta, gamma, tstate, rnd)
 
     def local_steps(buf, opt, layout, data, idx_r):
@@ -166,15 +327,23 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         return buf, opt, loss_sum / idx_r.shape[1]
 
     def run_rounds(state: FedState, data: dict, num_rounds: int,
-                   idx=None, generator: Optional[torch.Generator] = None):
+                   idx=None, generator: Optional[torch.Generator] = None,
+                   eta_stack=None, gamma_stack=None):
         """Run ``num_rounds`` rounds from ``state`` (which is left as it
         was). ``data``: node-stacked datasets, leaves (K, N, ...), moved
         to and kept on the device. ``idx``: (R, K, S, B) per-round batch
         indices; when omitted they are drawn from ``generator`` (default:
         a CPU generator seeded with ``train.seed + 1``).
 
+        ``eta_stack``: explicit per-round weights overriding
+        :func:`mixing_stack` (round r uses slice r): a dense (R, K, K)
+        array, a ``SparseEta`` with (R, K, D) stacks, or a ``HierEta``
+        under ``mixing_format='hierarchical'``. ``gamma_stack``: (R,) step
+        sizes; derived from the stacks' stability bound when omitted.
+
         Returns (state, metrics): ``loss`` (R, K), ``disagreement`` (R,)
-        and ``gamma`` (R,)."""
+        and ``gamma`` (R,); under the hierarchical format also
+        ``gamma_intra`` (R,) and ``clusters`` (R,)."""
         data = {name: torch.as_tensor(v, device=dev)
                 for name, v in data.items()}
         max_items = next(iter(data.values())).shape[1]
@@ -191,23 +360,39 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         if int(idx.min()) < 0 or int(idx.max()) >= max_items:
             raise ValueError(f"batch indices must lie in [0, {max_items})")
         idx = idx.to(device=dev, dtype=torch.int64)
-        eta, gamma = mixing(state)
+        if eta_stack is None:
+            etas, gammas = mixing_stack(state, num_rounds, start=state.round)
+            if gamma_stack is not None:
+                gammas = torch.as_tensor(gamma_stack, dtype=torch.float32,
+                                         device=dev)
+        else:
+            etas, gammas = explicit_stacks(eta_stack, gamma_stack)
+        check_stacks(etas, gammas, num_rounds)
         # every update below is out of place, so ``state`` stays as it was
         buf, opt, tstate = state.buf, state.opt, state.tstate
-        losses, dis = [], []
+        losses, dis, gamma_intra, clusters = [], [], [], []
         for r in range(num_rounds):
-            buf, tstate = mix_buf(buf, state.sizes, eta, gamma, tstate,
+            eta_r = round_slice(etas, r)
+            buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r], tstate,
                                   state.round + r)
             buf, opt, loss = local_steps(buf, opt, state.layout, data,
                                          idx[r])
             losses.append(loss)
             dis.append(flatten.disagreement_flat(buf, state.layout.total))
+            if hier_cfg is not None:
+                # what the clusters ran at, and how many there were
+                gamma_intra.append(eta_r.gamma_node.mean())
+                clusters.append(torch.zeros(k, device=dev).index_fill_(
+                    0, eta_r.cluster, 1.0).sum())
         metrics = {"loss": torch.stack(losses),
                    "disagreement": torch.stack(dis),
-                   "gamma": gamma.expand(num_rounds).clone()}
+                   "gamma": gammas.clone()}
+        if hier_cfg is not None:
+            metrics["gamma_intra"] = torch.stack(gamma_intra)
+            metrics["clusters"] = torch.stack(clusters)
         final = FedState(buf, state.layout, opt, state.ratios, state.sizes,
                          state.round + num_rounds, tstate)
         return final, metrics
 
     return Trainer(init=init, mixing=mixing, run_rounds=run_rounds,
-                   device=dev)
+                   device=dev, mixing_stack=mixing_stack)

@@ -126,6 +126,37 @@ def mix_flat(buf: torch.Tensor, eta: torch.Tensor, gamma,
     return out + (self_weight - 1.0) * buf
 
 
+def sparse_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                    gamma, wire: torch.Tensor | None = None) -> torch.Tensor:
+    """Paper eq. (5) with top-D sparse weights, one fused call (kernel B5
+    on the card):
+
+        phi_k = W_k + gamma * (sum_d val_kd W_{idx_kd} - rowsum_k W_k)
+
+    O(K·D·P) instead of the dense O(K²P). Same delta form and ``wire``
+    convention as :func:`mix_flat`; all-zero rows are pure
+    self-updates."""
+    w = buf if wire is None else wire
+    return ops.sparse_mix(idx, val.to(buf.dtype), buf, w, gamma)
+
+
+def cluster_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                     gamma_node: torch.Tensor,
+                     wire: torch.Tensor | None = None,
+                     wire_self: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. (5) with a PER-NODE step size, the intra-cluster tier of
+    hierarchical mixing (kernel B6 on the card):
+
+        phi_k = W_k + g_k * (sum_d val_kd W_{idx_kd} - rowsum_k WS_k)
+
+    The neighbor term reads ``wire`` (default ``buf``), the self rescale
+    ``wire_self`` (default ``wire``); ``buf`` stays the f32 master."""
+    w = buf if wire is None else wire
+    ws = w if wire_self is None else wire_self
+    return ops.cluster_mix(idx, val.to(buf.dtype), buf, ws, w,
+                           gamma_node.to(buf.dtype))
+
+
 def disagreement_flat(buf: torch.Tensor, total: int) -> torch.Tensor:
     """Mean squared node deviation from the node mean. ``total`` is the
     unpadded per-node element count (the zero padding adds nothing)."""

@@ -7,10 +7,71 @@ policies are plain tensor code on the device of their inputs.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch.registry import mixing_policies
+
+
+class SparseEta(NamedTuple):
+    """Top-D sparse mixing weights: ``idx[..., k, d]`` is the node index
+    of k's d-th neighbor (int32) and ``val[..., k, d]`` its weight (f32).
+    Empty slots (isolated nodes, degree padding) carry ``val == 0``; a
+    gathered row scaled by zero contributes nothing, so an all-zero row is
+    a pure self-update. ``(R, K, D)`` stacks slice per round like dense
+    ``(R, K, K)`` stacks."""
+
+    idx: torch.Tensor
+    val: torch.Tensor
+
+    @property
+    def degree(self) -> int:
+        return self.idx.shape[-1]
+
+
+def validate_degree(degree: int, k: int) -> int:
+    """A top-D degree must satisfy 1 <= D <= K-1 (no self loops); out of
+    range raises rather than clamps."""
+    degree = int(degree)
+    if not 1 <= degree <= k - 1:
+        raise ValueError(
+            f"degree={degree} out of range for K={k} nodes: need "
+            f"1 <= degree <= K-1 = {k - 1} (each node has at most K-1 "
+            f"neighbors; requesting more would silently clamp)")
+    return degree
+
+
+def sparsify_eta(eta: torch.Tensor, degree: int) -> SparseEta:
+    """Dense (..., K, K) eta -> top-``degree`` :class:`SparseEta`, the
+    survivors rescaled to each row's original mass (row sums, and so the
+    gamma bound, are unchanged; all-zero rows stay zero).
+
+    Ties keep the lower index first, as ``jax.lax.top_k`` does: the first
+    ``degree`` entries of a stable descending sort (``torch.topk``
+    promises no order among equal values)."""
+    k = eta.shape[-1]
+    degree = validate_degree(degree, k)
+    eta32 = eta.to(torch.float32)
+    val, idx = torch.sort(eta32, dim=-1, descending=True, stable=True)
+    val, idx = val[..., :degree], idx[..., :degree]
+    kept = torch.clamp_min(val, 0.0)              # eta is nonnegative
+    mass = eta32.sum(dim=-1)
+    keptmass = kept.sum(dim=-1)
+    scale = torch.where(keptmass > 0, mass / torch.clamp_min(keptmass, 1e-12),
+                        torch.zeros_like(mass))
+    return SparseEta(idx=idx.to(torch.int32).contiguous(),
+                     val=(kept * scale[..., None]).contiguous())
+
+
+def densify_eta(sp: SparseEta, k: int) -> torch.Tensor:
+    """Scatter a :class:`SparseEta` back to a dense (..., K, K) eta;
+    zero-weight slots add nothing, duplicate indices add."""
+    val = sp.val.to(torch.float32)
+    out = torch.zeros(val.shape[:-1] + (k,), dtype=torch.float32,
+                      device=val.device)
+    return out.scatter_add_(-1, sp.idx.long(), val)
 
 
 def adjacency(kind: str, k: int, *, seed: int = 0,
@@ -93,9 +154,14 @@ ALGORITHM_MIXING = {
 
 def mixing_weights(adj: torch.Tensor, rule: str,
                    ratios: torch.Tensor | None = None,
-                   sizes: torch.Tensor | None = None) -> torch.Tensor:
-    """Dense (K, K) eta from the selected registered mixing policy."""
-    return mixing_policies.get(rule)(adj, ratios=ratios, sizes=sizes)
+                   sizes: torch.Tensor | None = None,
+                   degree: int | None = None):
+    """Dense (K, K) eta from the selected registered mixing policy, or,
+    with ``degree``, its top-``degree`` :class:`SparseEta`."""
+    eta = mixing_policies.get(rule)(adj, ratios=ratios, sizes=sizes)
+    if degree is None:
+        return eta
+    return sparsify_eta(eta, degree)
 
 
 def renormalize_rows(eta: torch.Tensor,
@@ -109,17 +175,21 @@ def renormalize_rows(eta: torch.Tensor,
     return eta * scale[:, None]
 
 
-def max_row_sum(eta: torch.Tensor) -> torch.Tensor:
-    """∇ = max_k sum_i eta[k,i] — the paper's bound: gamma in (0, 1/∇)."""
+def max_row_sum(eta) -> torch.Tensor:
+    """∇ = max_k sum_i eta[k,i] — the paper's bound: gamma in (0, 1/∇).
+    A :class:`SparseEta` row sums over its D kept weights."""
+    if isinstance(eta, SparseEta):
+        return eta.val.sum(dim=-1).max()
     return eta.sum(dim=1).max()
 
 
-def stable_gamma(eta: torch.Tensor, cap: float) -> torch.Tensor:
+def stable_gamma(eta, cap: float) -> torch.Tensor:
     """``cap`` clipped to the stability bound gamma < 1/∇ (0.99 safety
     factor; an empty graph keeps the cap)."""
-    bound = 0.99 / torch.clamp_min(max_row_sum(eta), 1e-6)
+    nabla = max_row_sum(eta)
+    bound = 0.99 / torch.clamp_min(nabla, 1e-6)
     return torch.minimum(torch.tensor(cap, dtype=torch.float32,
-                                      device=eta.device), bound)
+                                      device=nabla.device), bound)
 
 
 def consensus_matrix(eta: torch.Tensor, gamma) -> torch.Tensor:

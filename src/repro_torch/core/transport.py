@@ -5,7 +5,8 @@
 What travels the wire is a :class:`WireCodec`: ``f32`` (identity) or
 ``bf16``, which halves the exchanged bytes; the delta-form mix keeps the
 wire precision on the neighbor differences, which vanish at consensus.
-On the card a bf16 wire is a real cast that kernel B1 reads as bf16.
+On the card a bf16 wire is a real cast that kernels B1, B5 and B6 read
+as bf16.
 Transports are ``fed -> Transport`` factories in
 :data:`repro_torch.registry.transports`; only the dense transport is
 ported so far.
@@ -18,6 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import flatten
+from repro_torch.core.topology import SparseEta
 from repro_torch.registry import transports, wire_codecs
 
 
@@ -79,17 +81,34 @@ class DenseTransport:
     def init_state(self, buf: torch.Tensor) -> Any:
         return ()
 
-    def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
-        """Eq. 5 on ``buf`` with weights ``eta``. ``sent`` overrides the
-        per-node wire payloads (fault injection): the neighbor terms then
-        read the codec'd payloads while the self term keeps each node's
-        own buffer through the codec."""
+    def wire(self, buf: torch.Tensor) -> torch.Tensor | None:
+        """What the mix kernels read as the exchanged buffer: ``None`` for
+        the identity codec, else the cast buffer (the registered codecs
+        are pure casts; the kernels upcast it themselves)."""
         codec = self.codec
+        return None if codec.cast_dtype == buf.dtype else codec.encode(buf)
+
+    def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
+        """Eq. 5 on ``buf`` with dense (K, K) weights or a
+        :class:`repro_torch.core.topology.SparseEta`. ``sent`` overrides
+        the per-node wire payloads (fault injection, dense only): the
+        neighbor terms then read the codec'd payloads while the self term
+        keeps each node's own buffer through the codec."""
+        sparse = isinstance(eta, SparseEta)
         if sent is None:
-            # the registered codecs are pure casts: the kernel reads the
-            # cast buffer and upcasts it itself
-            wire = None if codec.cast_dtype == buf.dtype else codec.encode(buf)
-            return flatten.mix_flat(buf, eta, gamma, wire=wire), state
+            wire = self.wire(buf)
+            if sparse:
+                out = flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma,
+                                              wire=wire)
+            else:
+                out = flatten.mix_flat(buf, eta, gamma, wire=wire)
+            return out, state
+        if sparse:
+            raise NotImplementedError(
+                "a sparse exchange with per-node payloads (sent=...) runs "
+                "only under faults: ROADMAP queue A item 16 (faults and "
+                "robust mixing, kernel B7)")
+        codec = self.codec
         w_nb = codec.roundtrip(sent)
         w_self = codec.roundtrip(buf)
         eta32 = eta.to(buf.dtype)

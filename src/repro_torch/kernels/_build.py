@@ -38,6 +38,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "repro_cnd_bitmaps": [_P, _P, _I, _I, _I, _I, _I, _P],
         "repro_cnd_popcount": [_P, _P, _I, _I, _P],
     },
+    "sparse_mix": {
+        "repro_sparse_mix_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "repro_sparse_mix_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "repro_cluster_mix_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _P],
+        "repro_cluster_mix_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,4 +1,4 @@
-"""Public entry points of the B1-B4 kernels.
+"""Public entry points of the B1-B6 kernels.
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cluster_mix as _clm
 from repro_torch.kernels import cnd_sketch as _cs
 from repro_torch.kernels import consensus_mix as _cm
 from repro_torch.kernels import ref
+from repro_torch.kernels import sparse_mix as _sm
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -37,6 +39,23 @@ def flat_consensus(matrix, buf) -> torch.Tensor:
     if _on_cuda(buf):
         return _cm.flat_consensus(matrix, buf)
     return ref.flat_consensus(matrix, buf)
+
+
+def sparse_mix(idx, val, master, wire, gamma) -> torch.Tensor:
+    """Top-D sparse eq. 5 delta mix on the flat buffer (B5):
+    ``MASTER + gamma * (sum_d VAL W[IDX] - rowsum(VAL) * WIRE)``."""
+    if _on_cuda(master):
+        g = torch.as_tensor(gamma, dtype=torch.float32, device=master.device)
+        return _sm.sparse_mix(idx, val, master, wire, g.reshape(1))
+    return ref.sparse_mix(idx, val, master, wire, gamma)
+
+
+def cluster_mix(idx, val, master, wself, wire, gamma_node) -> torch.Tensor:
+    """Per-node-gamma cluster gather-mix (B6):
+    ``MASTER + g[:, None] * (sum_d VAL W[IDX] - rowsum(VAL) * WSELF)``."""
+    if _on_cuda(master):
+        return _clm.cluster_mix(idx, val, master, wself, wire, gamma_node)
+    return ref.cluster_mix(idx, val, master, wself, wire, gamma_node)
 
 
 def cnd_bitmaps(items, num_hashes: int = 3, m: int = 8192) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the B1-B4 kernels: the CPU path of
+"""Plain PyTorch versions of the B1-B6 kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
 against on the card. Device-agnostic tensor code."""
 from __future__ import annotations
@@ -23,6 +23,45 @@ def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
 def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
     """``OUT = A @ BUF`` in f32."""
     return matrix.float() @ buf.float()
+
+
+def sparse_neighbor_sum(idx: torch.Tensor, val: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """``sum_d val[k,d] * W[idx[k,d]]`` in f32: D gather-axpy passes over
+    the (K, P) buffer. Zero-weight slots gather a row and multiply it
+    away."""
+    w32 = w.float()
+    val32 = val.float()
+    rows = idx.long()
+    acc = val32[:, 0:1] * w32[rows[:, 0]]
+    for dd in range(1, rows.shape[1]):
+        acc = acc + val32[:, dd:dd + 1] * w32[rows[:, dd]]
+    return acc
+
+
+def sparse_mix(idx: torch.Tensor, val: torch.Tensor, master: torch.Tensor,
+               wire: torch.Tensor, gamma) -> torch.Tensor:
+    """``OUT_k = M_k + gamma * (sum_d val[k,d] W[idx[k,d]] - rowsum_k W_k)``
+    for (K, D) idx/val, f32 master, f32 or bf16 wire."""
+    val32 = val.float()
+    w32 = wire.float()
+    g = torch.as_tensor(gamma, dtype=torch.float32, device=master.device)
+    row = val32.sum(dim=1)
+    mixed = sparse_neighbor_sum(idx, val32, w32)
+    return master + g.reshape(()) * (mixed - row[:, None] * w32)
+
+
+def cluster_mix(idx: torch.Tensor, val: torch.Tensor, master: torch.Tensor,
+                wself: torch.Tensor, wire: torch.Tensor,
+                gamma_node: torch.Tensor) -> torch.Tensor:
+    """``OUT_k = M_k + g[k] * (sum_d val[k,d] W[idx[k,d]] - rowsum_k
+    WSELF_k)``: the sparse mix with a per-node step size and a separate
+    self payload."""
+    val32 = val.float()
+    g = gamma_node.float()
+    row = val32.sum(dim=1)
+    mixed = sparse_neighbor_sum(idx, val32, wire)
+    return master + g[:, None] * (mixed - row[:, None] * wself.float())
 
 
 def cnd_bitmaps(items: torch.Tensor, num_hashes: int = 3,

@@ -7,6 +7,10 @@ caller.
 * :data:`wire_codecs`     — the buffer's representation on the wire;
 * :data:`mixing_policies` — eq. 6 weight rules
   (:mod:`repro_torch.core.topology`);
+* :data:`mobility_traces` — kinematic trace generators
+  (:mod:`repro_torch.mobility.traces`);
+* :data:`leader_policies` — cluster-leader scores
+  (:mod:`repro_torch.hierarchy.leaders`);
 * :data:`algorithms`      — trainer-level schemes
   (:class:`AlgorithmSpec`, registered by :mod:`repro_torch.core.baselines`).
 
@@ -74,6 +78,8 @@ class AlgorithmSpec:
 transports = Registry("transport")
 wire_codecs = Registry("wire codec")
 mixing_policies = Registry("mixing policy")
+mobility_traces = Registry("mobility trace")
+leader_policies = Registry("leader policy")
 algorithms = Registry("algorithm")
 
 # (config field, value) -> the ROADMAP item that ports it
@@ -84,11 +90,6 @@ NOT_PORTED = {
                            "transports)",
     ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
                              "transports)",
-    ("mixing_format", "sparse"): "ROADMAP queue A item 17 (sparse format, "
-                                 "kernel B5)",
-    ("mixing_format", "hierarchical"): "ROADMAP queue A item 18 "
-                                       "(hierarchy, kernel B6)",
-    ("mobility", None): "ROADMAP queue A item 15 (mobility)",
     ("faults", None): "ROADMAP queue A item 16 (faults and robust mixing, "
                       "kernel B7)",
     ("robust", None): "ROADMAP queue A item 16 (faults and robust mixing, "
@@ -106,6 +107,8 @@ def ensure_plugins() -> None:
         return
     import repro_torch.core.topology    # noqa: F401  (mixing policies)
     import repro_torch.core.transport   # noqa: F401  (transports, codecs)
+    import repro_torch.mobility.traces  # noqa: F401  (mobility traces)
+    import repro_torch.hierarchy.leaders  # noqa: F401  (leader policies)
     import repro_torch.core.baselines   # noqa: F401  (algorithms)
     _loaded = True
 
@@ -123,6 +126,70 @@ def validate_fed_config(fed) -> None:
     wire_codecs.get(fed.wire_dtype)
     mixing_policies.get(fed.mixing)
     _check_name(algorithms, "algorithm", fed.algorithm)
-    if fed.mixing_format not in ("dense", "sparse", "hierarchical"):
-        raise ValueError(f"unknown mixing_format {fed.mixing_format!r} "
+    fmt = fed.mixing_format
+    if fmt not in ("dense", "sparse", "hierarchical"):
+        raise ValueError(f"unknown mixing_format {fmt!r} "
                          f"(choose from dense | sparse | hierarchical)")
+    if fed.hierarchy is not None and fmt != "hierarchical":
+        raise ValueError(
+            "FedConfig.hierarchy is set but mixing_format is "
+            f"{fmt!r} — hierarchy knobs only apply to "
+            "mixing_format='hierarchical'")
+    if fmt == "hierarchical":
+        if fed.transport != "dense":
+            raise ValueError(
+                "mixing_format='hierarchical' requires the dense "
+                "transport: the two-tier mix gathers arbitrary "
+                "co-cluster and leader rows from the resident buffer "
+                f"(got transport={fed.transport!r})")
+        if fed.robust is not None:
+            raise ValueError(
+                "mixing_format='hierarchical' cannot combine with "
+                "robust aggregation: robust rules rank the FULL dense "
+                "neighbor column per coordinate "
+                "(use mixing_format='dense')")
+        if fed.algorithm in ("fedavg", "cdfa_m"):
+            raise ValueError(
+                f"mixing_format='hierarchical' does not apply to "
+                f"algorithm={fed.algorithm!r}: fedavg has no "
+                f"consensus exchange and cdfa_m mixes a dense layer "
+                f"prefix (use cdfl | cfa | metropolis | dpsgd)")
+    if fmt == "sparse":
+        from repro_torch.core.topology import validate_degree
+        validate_degree(fed.degree, fed.num_nodes)
+        if fed.transport == "ring":
+            raise ValueError(
+                "mixing_format='sparse' needs a gather-capable transport "
+                "(dense | gossip); the ring transport is physically "
+                "degree-2 — its shifts ARE its topology")
+        if fed.robust is not None:
+            raise ValueError(
+                "mixing_format='sparse' cannot combine with robust "
+                "aggregation: robust rules rank the FULL dense neighbor "
+                "column per coordinate (use mixing_format='dense')")
+
+
+def validate_hierarchy_config(hier) -> None:
+    ensure_plugins()
+    leader_policies.get(hier.leader_policy)
+    if hier.max_cluster_size < 2:
+        raise ValueError(f"max_cluster_size must be >= 2, "
+                         f"got {hier.max_cluster_size}")
+    if hier.inter_degree < 1:
+        raise ValueError(f"inter_degree must be >= 1, "
+                         f"got {hier.inter_degree}")
+    if hier.remerge_burst < 0:
+        raise ValueError(f"remerge_burst must be >= 0, "
+                         f"got {hier.remerge_burst}")
+    if hier.intra_rule is not None:
+        mixing_policies.get(hier.intra_rule)
+
+
+def validate_mobility_config(mob) -> None:
+    ensure_plugins()
+    if mob.kind != "static":
+        mobility_traces.get(mob.kind)
+    from repro_torch.mobility.links import LINK_QUALITIES
+    if mob.link_quality not in LINK_QUALITIES:
+        raise ValueError(f"unknown link_quality {mob.link_quality!r} "
+                         f"(choose from {LINK_QUALITIES})")

@@ -57,7 +57,8 @@ def _fields(cls):
             for f in dataclasses.fields(cls)]
 
 
-@pytest.mark.parametrize("name", ["FedConfig", "TrainConfig", "MeshConfig"])
+@pytest.mark.parametrize("name", ["FedConfig", "TrainConfig", "MeshConfig",
+                                  "MobilityConfig", "HierarchyConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tbase, name)) == _fields(getattr(jbase, name))
 
@@ -91,9 +92,11 @@ def test_entry_points_default_to_the_card():
     ({"algorithm": "cdfa_m"}, "item 14"),
     ({"transport": "ring"}, "item 20"),
     ({"transport": "gossip"}, "item 20"),
-    ({"mixing_format": "sparse"}, "item 17"),
-    ({"mixing_format": "hierarchical"}, "item 18"),
-    ({"mobility": object()}, "item 15"),
+    ({"mixing_format": "sparse", "transport": "gossip", "num_nodes": 16},
+     "item 20"),
+    ({"mixing_format": "hierarchical", "algorithm": "dpsgd"}, "item 14"),
+    ({"faults": object(), "mixing_format": "sparse", "num_nodes": 16},
+     "item 16"),
     ({"faults": object()}, "item 16"),
     ({"robust": "median"}, "item 16"),
     ({"ingest": object()}, "item 19"),
