@@ -15,10 +15,18 @@ under the profiler; the twin of ``examples/mobility_platoon.py`` (K=8,
 dense format, checked against the CPU); the sparse and the hierarchical
 K=1024 fleets (1 warm-up round, then 3 repeats of 5 timed rounds, one
 profiled round, the exchange timed alone), each format also checked
-against the CPU at K=64; the kernel table as one JSON line; and the
-verdict as the last line. Every path phase zeroes the kernels' launch
-counts before it runs and checks them after. Exits non-zero, with no
-verdict, when CUDA is absent or any check fails.
+against the CPU at K=64; then the fault and robust-mixing path: B7 held
+against its plain version at K=8, 64 and 256 (median, trimmed mean with
+trim 1 and 2) and at K=100 with live non-finite payloads, the Byzantine
+platoon (K=8, one sign-flip attacker, eq. 5 against the trimmed mean,
+gated on the honest nodes' accuracy), the faulted robust K=256 Manhattan
+fleet (every fault kind, trimmed mean) and the faulted K=1024 sparse and
+hierarchical fleets (link drops, crashes, bit flips, stragglers), each
+with telemetry held against the compiled fault plan and checked against
+the CPU at K=64 (K=8 for the platoon); the kernel table as one JSON line;
+and the verdict as the last line. Every path phase zeroes the kernels'
+launch counts before it runs and checks them after. Exits non-zero, with
+no verdict, when CUDA is absent or any check fails.
 """
 from __future__ import annotations
 
@@ -53,6 +61,20 @@ MANHATTAN = dict(kind="manhattan", speed=10.0, radio_range=500.0,
 PLATOON = dict(kind="platoon", speed=25.0, speed_jitter=0.4,
                radio_range=300.0, dt=5.0, seed=3, link_quality="quadratic")
 RTOL, ATOL = 1e-5, 1e-6       # f32 kernels against their plain versions
+ROBUST_K = 256                # the faulted robust fleet
+FAULT_ROUNDS = 5              # timed rounds of each faulted fleet
+# the fault cocktail of the faulted robust fleet: every kind at once
+ROBUST_FAULTS = dict(kinds=("link_drop", "crash", "corrupt", "straggle",
+                            "byzantine"), drop_rate=0.1, crash_rate=0.05,
+                     recover_rate=0.3, corrupt_rate=0.05, corrupt_mode="nan",
+                     straggle_rate=0.1, byzantine=(3, 77, 150),
+                     byzantine_mode="sign_flip", seed=0)
+# the faulted K=1024 fleets: every non-adversarial kind at default rates
+FLEET_FAULTS = dict(kinds=("link_drop", "crash", "corrupt", "straggle"),
+                    corrupt_mode="bitflip")
+# tests/test_faults.py:375, the Byzantine platoon
+BYZ_PLATOON = dict(kind="platoon", speed=20.0, speed_jitter=0.3,
+                   radio_range=250.0, dt=2.0, seed=0)
 
 
 def fail(msg: str) -> None:
@@ -113,6 +135,14 @@ def paper_nodes(k: int, n: int = 320):
         ratios[i % 4], seed=i) for i in range(k)]
 
 
+def synthetic_classes(i: int):
+    """A vehicle of the Byzantine platoon (tests/test_faults.py:375): 160
+    synthetic-MNIST items of the classes {3i, 3i+1, 3i+2} mod 10."""
+    from repro_torch.data import synthetic
+    return synthetic.synthetic_mnist(
+        seed=i, n=160, classes=[(3 * i + c) % 10 for c in range(3)])
+
+
 def synthetic_nodes(i: int):
     """A vehicle of examples/mobility_platoon.py: 256 synthetic-MNIST
     items, no injected duplicates."""
@@ -132,13 +162,14 @@ def node_arrays(nodes, local_steps: int = 10):
 def counted():
     """Every kernel wrapper with a launch count, by kernel name."""
     from repro_torch.kernels import cluster_mix, cnd_sketch, consensus_mix
-    from repro_torch.kernels import sparse_mix
+    from repro_torch.kernels import robust_agg, sparse_mix
     return {"flat_mix": consensus_mix.flat_mix,
             "flat_consensus": consensus_mix.flat_consensus,
             "cnd_bitmaps": cnd_sketch.cnd_bitmaps,
             "cnd_popcount": cnd_sketch.cnd_popcount,
             "sparse_mix": sparse_mix.sparse_mix,
-            "cluster_mix": cluster_mix.cluster_mix}
+            "cluster_mix": cluster_mix.cluster_mix,
+            "robust_agg": robust_agg.robust_agg}
 
 
 def reset_counts() -> None:
@@ -180,16 +211,21 @@ def main() -> None:
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import mobility
-    from repro_torch.configs.base import (FedConfig, HierarchyConfig,
-                                          MobilityConfig, TrainConfig)
+    from repro_torch.configs.base import (FaultConfig, FedConfig,
+                                          HierarchyConfig, MobilityConfig,
+                                          TrainConfig)
     from repro_torch.configs.paper_models import MLP_CONFIG
     from repro_torch.core import cdfl, transport
     from repro_torch.core.cdfl import round_slice
+    from repro_torch.data import synthetic
+    from repro_torch.faults import compile_plan
+    from repro_torch.faults.robust import sorted_weights
     from repro_torch.hierarchy import mixing as hier
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import cluster_mix as clm
     from repro_torch.kernels import cnd_sketch as cs
     from repro_torch.kernels import consensus_mix as cm
+    from repro_torch.kernels import robust_agg as ra
     from repro_torch.kernels import sparse_mix as sm
     from repro_torch.models import simple
 
@@ -261,12 +297,15 @@ def main() -> None:
     rows = {}
 
     def record(name, shape, err, fn, plain_fn, lib_fn, nbytes, ops, rate,
-               lib_graph=True, extra=None):
+               lib_graph=True, extra=None, slow=False):
+        """``slow``: time the plain and library versions over 2 calls x 5
+        runs (they take tens of ms a call)."""
         b_ms, b_by = bound(nbytes, ops, rate)
         ms, graph_ms = timing(fn)
-        plain_ms, plain_graph_ms = timing(plain_fn)
-        lib_ms, lib_graph_ms = (timing(lib_fn, graph=lib_graph) if lib_fn
-                                else (None, None))
+        few = dict(launches=2, reps=5) if slow else {}
+        plain_ms, plain_graph_ms = timing(plain_fn, **few)
+        lib_ms, lib_graph_ms = (timing(lib_fn, graph=lib_graph, **few)
+                                if lib_fn else (None, None))
         fmt = lambda v: "null" if v is None else f"{v:.5f}"
         more = "".join(f" {k}={v}" for k, v in (extra or {}).items())
         print(f"kernel {name} {shape} max_abs_err={err:.3e} ms={ms:.5f} "
@@ -427,13 +466,76 @@ def main() -> None:
                       "library": "torch.sparse.mm(csr eta, f32 wire), "
                                  "neighbor sum only"})
     del master, other
-    print("kernels all six agree with their plain versions "
-          f"(B1/B2/B5/B6 rtol={RTOL} atol={ATOL}, B3/B4 bit for bit)",
+
+    # B7 at the shapes of the platoon (K=8), the card-vs-CPU checks (K=64)
+    # and the robust fleet (K=256, last: the path's shape). Masks as in
+    # tests/test_faults.py:325: density about 0.6, own slot live, one
+    # drained row. The library yardstick is torch.sort over the masked
+    # candidates plus one batched product with the position weights,
+    # chunked over P as the plain version is: no single PyTorch call
+    # computes B7.
+    def sort_bmm(w, mask, buf, sent):
+        k = buf.shape[0]
+        step = max(1, ref.ROBUST_CHUNK_ELEMS // (k * k))
+        return torch.cat([torch.bmm(w[:, None, :], ref.robust_sorted(
+            mask, buf[:, c:c + step], sent[:, c:c + step]))[:, 0]
+            for c in range(0, buf.shape[1], step)], dim=1)
+
+    for k in (8, 64, ROBUST_K):
+        buf = torch.randn((k, P), generator=gen, device=dev)
+        sent = torch.randn((k, P), generator=gen, device=dev)
+        mask = (torch.rand((k, k), generator=gen, device=dev) < 0.6) | \
+            torch.eye(k, dtype=torch.bool, device=dev)
+        mask[k // 2] = False
+        mask = mask.to(torch.float32)
+        for mode, trim in (("median", 0), ("trimmed_mean", 1),
+                           ("trimmed_mean", 2)):
+            w = sorted_weights(mask, mode, trim)
+            err = check(f"robust_agg K={k} {mode} trim={trim}",
+                        ra.robust_agg(w, mask, buf, sent),
+                        ref.robust_agg(w, mask, buf, sent))
+            print(f"check robust_agg K={k} {mode} trim={trim} "
+                  f"max_abs_err={err:.3e} (rtol={RTOL} atol={ATOL})",
+                  flush=True)
+            row = rows.setdefault("robust_agg", {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        # timed on the trimmed mean with trim 1, the fleet's rule
+        w = sorted_weights(mask, "trimmed_mean", 1)
+        record("robust_agg", f"K={k} P={P} trimmed_mean trim=1", err,
+               lambda: ra.robust_agg(w, mask, buf, sent),
+               lambda: ref.robust_agg(w, mask, buf, sent),
+               lambda: sort_bmm(w, mask, buf, sent),
+               12 * k * P + 8 * k * k, k * k * P, F32_OPS_PER_S, slow=True,
+               extra={"library": "torch.sort of the masked (K, K, C) "
+                                 "candidates + torch.bmm with the weights, "
+                                 "chunked over P"})
+    # edges: K neither a power of two nor a multiple of 32, and live
+    # non-finite payloads (-inf sorts first, +inf and NaN last, all zeroed)
+    k = 100
+    buf = torch.randn((k, P), generator=gen, device=dev)
+    sent = torch.randn((k, P), generator=gen, device=dev)
+    sent[1, :999] = float("inf")
+    sent[2, 500:1500] = float("-inf")
+    sent[3, 1000:2000] = float("nan")
+    mask = ((torch.rand((k, k), generator=gen, device=dev) < 0.6) |
+            torch.eye(k, dtype=torch.bool, device=dev)).to(torch.float32)
+    for mode, trim in (("median", 0), ("trimmed_mean", 1)):
+        w = sorted_weights(mask, mode, trim)
+        err = check(f"robust_agg K={k} {mode} trim={trim} non-finite",
+                    ra.robust_agg(w, mask, buf, sent),
+                    ref.robust_agg(w, mask, buf, sent))
+        print(f"check robust_agg K={k} {mode} trim={trim} with live "
+              f"non-finite payloads max_abs_err={err:.3e}", flush=True)
+        rows["robust_agg"]["max_abs_err"] = max(
+            rows["robust_agg"]["max_abs_err"], err)
+    del buf, sent
+    print("kernels all seven agree with their plain versions "
+          f"(B1/B2/B5/B6/B7 rtol={RTOL} atol={ATOL}, B3/B4 bit for bit)",
           flush=True)
 
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
     totals = {name: 0 for name in read_counts()}
-    dense_only = {"sparse_mix": 0, "cluster_mix": 0}
+    dense_only = {"sparse_mix": 0, "cluster_mix": 0, "robust_agg": 0}
 
     def add(counts):
         for name, c in counts.items():
@@ -606,7 +708,8 @@ def main() -> None:
         counts = read_counts()
         timed = FLEET_ROUNDS - 1
         expect = {"flat_mix": 0, "flat_consensus": 0, "cnd_bitmaps": 1,
-                  "cnd_popcount": 1, "sparse_mix": timed, "cluster_mix": 0}
+                  "cnd_popcount": 1, "sparse_mix": timed, "cluster_mix": 0,
+                  "robust_agg": 0}
         if fmt == "hierarchical":
             bursts = int(etas.burst[:timed].sum().item())
             expect["cluster_mix"] = (timed + fleet_feds[fmt].hierarchy
@@ -685,7 +788,189 @@ def main() -> None:
                   f"max|param diff|={(outs[0] - outs[1]).abs().max():.3e} "
                   f"(reported, not gated)", flush=True)
 
-    # -- 7. kernel table --------------------------------------------------
+    # -- 7. faults and robust mixing --------------------------------------
+    def check_telemetry(label, metrics, plan):
+        """health equals the compiled plan; every corrupted frame (NaN, or
+        bit flips that blow a value past the guard's threshold) was
+        quarantined and nothing else."""
+        for name, want in (("health", plan.health),
+                           ("quarantined", plan.corrupt)):
+            got = metrics[name].cpu().numpy()
+            if not np.array_equal(got, want):
+                fail(f"{label}: {name} differs from the fault plan in "
+                     f"{int((got != want).sum())} of {got.size} entries")
+
+    # 7a. the Byzantine platoon (tests/test_faults.py:375): 8 vehicles, node
+    # i holding classes {3i, 3i+1, 3i+2} mod 10, one sign-flip attacker
+    k = 8
+    byz_data, byz_items = node_arrays([synthetic_classes(i)
+                                       for i in range(k)], local_steps=2)
+    test_set = synthetic.synthetic_mnist(seed=99, n=400)
+    test_x = torch.as_tensor(test_set.x, device=dev).expand(
+        (k,) + test_set.x.shape)
+    test_y = torch.as_tensor(test_set.y, device=dev).expand(
+        (k,) + test_set.y.shape)
+
+    def accuracy(params):
+        return simple.accuracy(simple.mlp_forward(params, test_x), test_y)
+
+    byz_train = TrainConfig(learning_rate=1e-3, batch_size=32)
+    honest = np.ones(k, dtype=bool)
+    honest[3] = False
+    tails = {}
+    for robust in (None, "trimmed_mean"):
+        fed = FedConfig(num_nodes=k, local_steps=2, gamma=0.8,
+                        mobility=MobilityConfig(**BYZ_PLATOON),
+                        faults=FaultConfig(kinds=("byzantine",),
+                                           byzantine=(3,)),
+                        robust=robust)
+        tr = cdfl.build_trainer(loss, fed, byz_train, eval_fn=accuracy)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, metrics = tr.run_rounds(tr.init(p0, byz_items), byz_data, 20,
+                                   generator=torch.Generator().manual_seed(7))
+        torch.cuda.synchronize()
+        round_ms = 1e3 * (time.perf_counter() - t0) / 20
+        counts = read_counts()
+        label = "eq5" if robust is None else robust
+        # eq. 5 under faults mixes the per-node payloads through B2
+        expect_counts(f"byzantine platoon {label}", counts, {
+            "flat_mix": 0, "flat_consensus": 0 if robust else 20,
+            "robust_agg": 20 if robust else 0, "cnd_bitmaps": 1,
+            "cnd_popcount": 1, "sparse_mix": 0, "cluster_mix": 0})
+        add(counts)
+        acc = metrics["eval"].cpu().numpy()
+        tails[label] = float(acc[-5:, honest].mean())
+        print(f"path byzantine platoon K={k} {label} honest accuracy/round="
+              f"{[round(float(a), 3) for a in acc[:, honest].mean(axis=1)]}"
+              f" tail(last 5)={tails[label]:.4f} launches={counts} "
+              f"ms/round={round_ms:.3f}", flush=True)
+    gap = tails["trimmed_mean"] - tails["eq5"]
+    if not (tails["trimmed_mean"] >= 0.80 and gap > 0.10):
+        fail(f"byzantine platoon: trimmed-mean honest tail "
+             f"{tails['trimmed_mean']:.4f} (floor 0.80), {gap:.4f} above "
+             f"eq. 5 (floor 0.10)")
+    print(f"check byzantine platoon tails trimmed_mean="
+          f"{tails['trimmed_mean']:.4f} eq5={tails['eq5']:.4f} "
+          f"gap={gap:.4f} (>= 0.80, > 0.10)", flush=True)
+    _, _, _, diff, _ = drive(fed, 3, 8, None, byz_data, byz_items,
+                             check_loss=False)
+    print(f"check byzantine platoon trimmed_mean K={k} 3 rounds card-vs-cpu "
+          f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+
+    # 7b. the faulted robust fleet: Manhattan, dense format, trimmed mean,
+    # every fault kind; 1 warm-up round, FAULT_ROUNDS timed, 1 profiled
+    fed = FedConfig(num_nodes=ROBUST_K, gamma=0.5, local_steps=10,
+                    mobility=MobilityConfig(**MANHATTAN),
+                    faults=FaultConfig(**ROBUST_FAULTS),
+                    robust="trimmed_mean", trim=1)
+    tr = cdfl.build_trainer(loss, fed, train)
+    data_dev = {name: torch.as_tensor(v, device=dev)
+                for name, v in data256.items()}
+    gen_idx = torch.Generator().manual_seed(9)
+    reset_counts()
+    state = tr.init(p0, items256)
+    state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = tr.run_rounds(state, data_dev, FAULT_ROUNDS,
+                                   generator=gen_idx)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0) / FAULT_ROUNDS
+    check_telemetry("robust fleet", metrics,
+                    compile_plan(fed.faults, FAULT_ROUNDS, ROBUST_K, start=1))
+    state, prof_ms, busy, n_dev = profiled(tr, state, data_dev, gen_idx)
+    counts = read_counts()
+    expect_counts(f"robust fleet K={ROBUST_K}", counts, {
+        "flat_mix": 0, "flat_consensus": 0, "cnd_bitmaps": 1,
+        "cnd_popcount": 1, "sparse_mix": 0, "cluster_mix": 0,
+        "robust_agg": FAULT_ROUNDS + 2})
+    add(counts)
+    if not torch.isfinite(state.buf).all():
+        fail("robust fleet: non-finite params")
+    busy_ms = sum(busy.values())
+    b7_ms = sum(v for n, v in busy.items() if "robust_agg" in n)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    health = metrics["health"].cpu().numpy()
+    print(f"path robust fleet K={ROBUST_K} Manhattan trimmed_mean faults="
+          f"{'+'.join(fed.faults.kinds)} ms/round={round_ms:.3f} "
+          f"crashed node-rounds={int((health == 0).sum())} quarantined="
+          f"{int(metrics['quarantined'].sum().item())} frozen="
+          f"{int(metrics['frozen'].sum().item())} loss/round="
+          f"{[round(v, 4) for v in metrics['loss'].mean(dim=1).tolist()]} "
+          f"launches={counts}", flush=True)
+    print(f"profile robust fleet round: wall_ms={prof_ms:.3f} device_busy_ms="
+          f"{busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} B7_ms="
+          f"{b7_ms:.4f} B7_share_of_busy={b7_ms / busy_ms:.4f} device_events="
+          f"{n_dev} top={[(n, round(v, 4)) for n, v in top]}", flush=True)
+    del data_dev
+    _, _, _, diff, _ = drive(dataclasses.replace(fed, num_nodes=64), 3, 10,
+                             None, data64, items64, check_loss=False)
+    print(f"check robust fleet K=64 3 rounds card-vs-cpu max|param diff|="
+          f"{diff:.3e} (<= 1e-4)", flush=True)
+
+    # 7c. the faulted K=1024 fleets, sparse and hierarchical (eq. 5: robust
+    # mixing needs the dense format), on the stacks built in 2b; the fault
+    # plan's link mask edits them inside run_rounds
+    data_dev = {name: torch.as_tensor(v, device=dev)
+                for name, v in data1024.items()}
+    faults = FaultConfig(**FLEET_FAULTS)
+    for fmt, (_, etas, gammas) in fleet.items():
+        fed = dataclasses.replace(fleet_feds[fmt], faults=faults)
+        tr = cdfl.build_trainer(loss, fed, train)
+        gen_idx = torch.Generator().manual_seed(11)
+
+        def rounds(state, lo, hi):
+            return tr.run_rounds(state, data_dev, hi - lo, generator=gen_idx,
+                                 eta_stack=round_slice(etas, slice(lo, hi)),
+                                 gamma_stack=gammas[lo:hi])
+
+        reset_counts()
+        state = tr.init(p0, items1024)
+        state, _ = rounds(state, 0, 1)                  # warm-up round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = rounds(state, 1, 1 + FAULT_ROUNDS)
+        torch.cuda.synchronize()
+        round_ms = 1e3 * (time.perf_counter() - t0) / FAULT_ROUNDS
+        counts = read_counts()
+        done = 1 + FAULT_ROUNDS
+        # with per-node payloads the sparse exchange is B6 (gathered rows
+        # from the payloads, self rescale from the buffer); the
+        # hierarchical one B6 then B5, B6 again on re-merge rounds
+        expect = {"flat_mix": 0, "flat_consensus": 0, "cnd_bitmaps": 1,
+                  "cnd_popcount": 1, "robust_agg": 0, "sparse_mix": 0,
+                  "cluster_mix": done}
+        if fmt == "hierarchical":
+            bursts = int(etas.burst[:done].sum().item())
+            expect["sparse_mix"] = done
+            expect["cluster_mix"] = done + fed.hierarchy.remerge_burst * bursts
+        expect_counts(f"faulted fleet {fmt} K={FLEET_K}", counts, expect)
+        add(counts)
+        check_telemetry(f"faulted fleet {fmt}", metrics,
+                        compile_plan(faults, FAULT_ROUNDS, FLEET_K, start=1))
+        if not torch.isfinite(state.buf).all():
+            fail(f"faulted fleet {fmt}: non-finite params")
+        health = metrics["health"].cpu().numpy()
+        print(f"path faulted fleet {fmt} K={FLEET_K} Manhattan faults="
+              f"{'+'.join(faults.kinds)} ({faults.corrupt_mode}) ms/round="
+              f"{round_ms:.3f} crashed node-rounds={int((health == 0).sum())}"
+              f" quarantined={int(metrics['quarantined'].sum().item())} "
+              f"frozen={int(metrics['frozen'].sum().item())} loss/round="
+              f"{[round(v, 4) for v in metrics['loss'].mean(dim=1).tolist()]}"
+              f" launches={counts} (B1={counts['flat_mix']})", flush=True)
+    del data_dev
+    for fmt, fed in fleet_feds.items():
+        small = dataclasses.replace(fed, num_nodes=64, wire_dtype="f32",
+                                    faults=faults)
+        _, metrics, _, diff, _ = drive(small, 3, 12, None, data64, items64,
+                                       check_loss=False)
+        check_telemetry(f"faulted fleet {fmt} K=64", metrics,
+                        compile_plan(faults, 3, 64))
+        print(f"check faulted {fmt} K=64 wire=f32 3 rounds card-vs-cpu "
+              f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+
+    # -- 8. kernel table --------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",
                             "src/repro/kernels/consensus_mix.py:77"),
                "flat_consensus": ("src/repro_torch/csrc/consensus_mix.cu",
@@ -697,7 +982,9 @@ def main() -> None:
                "sparse_mix": ("src/repro_torch/csrc/sparse_mix.cu",
                               "src/repro/kernels/sparse_mix.py:92"),
                "cluster_mix": ("src/repro_torch/csrc/sparse_mix.cu",
-                               "src/repro/kernels/cluster_mix.py:95")}
+                               "src/repro/kernels/cluster_mix.py:95"),
+               "robust_agg": ("src/repro_torch/csrc/robust_agg.cu",
+                              "src/repro/kernels/robust_agg.py:90")}
     table = []
     for name, (source, replaces) in sources.items():
         row = rows[name]

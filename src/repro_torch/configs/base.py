@@ -1,17 +1,17 @@
 """Configuration dataclasses of the port.
 
 ``FedConfig``, ``MobilityConfig``, ``HierarchyConfig``, ``TrainConfig``,
-``MeshConfig`` and ``RunConfig`` keep every field name and default of the
-JAX package's configs, so a config reads the same in both. The
-sub-configs the port does not run yet (faults, ingest) are kept as
-``FedConfig`` fields, and ``build_trainer`` refuses a config that sets
-them.
+``MeshConfig``, ``RunConfig`` and ``FaultConfig`` keep every field name
+and default of the JAX package's configs, so a config reads the same in
+both. The sub-config the port does not run yet (ingest) is kept as a
+``FedConfig`` field, and ``build_trainer`` refuses a config that sets
+it.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 from repro_torch.configs.paper_models import MLPConfig
 
@@ -73,6 +73,63 @@ class MobilityConfig:
     def __post_init__(self):
         from repro_torch.registry import validate_mobility_config
         validate_mobility_config(self)
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Fault-injection scenario: per-round link/node/wire failures.
+
+    ``kinds`` selects registered fault models (:mod:`repro_torch.faults.
+    models`); each compiles on the host into per-round schedules that
+    ``run_rounds`` reads one round at a time. All schedules are
+    deterministic in ``seed`` and independent of segmentation (resuming at
+    round r replays the same faults as an unbroken run).
+    """
+
+    kinds: Tuple[str, ...] = ()      # registered fault model names
+    seed: int = 0                    # fault RNG seed (decorrelated per kind)
+    # --- link_drop: i.i.d. undirected link erasures --------------------------
+    drop_rate: float = 0.1           # per-link per-round drop probability
+    # --- crash: per-node crash/recover Markov schedule -----------------------
+    crash_rate: float = 0.05         # P(alive -> crashed) per round
+    recover_rate: float = 0.3        # P(crashed -> alive) per round
+    # --- corrupt: wire payload corruption ------------------------------------
+    corrupt_rate: float = 0.05       # per-node per-round corruption prob
+    corrupt_mode: str = "nan"        # nan | inf | bitflip
+    # --- straggle: stale-buffer replay ---------------------------------------
+    straggle_rate: float = 0.1       # per-node per-round stale-send prob
+    # --- byzantine: adversarial senders --------------------------------------
+    byzantine: Tuple[int, ...] = ()  # attacker node indices
+    byzantine_mode: str = "sign_flip"  # sign_flip | scale
+    byzantine_scale: float = 10.0    # wire multiplier for mode="scale"
+    # wire guard: quarantine payloads with |value| above this (catches
+    # bit-flip noise that stays finite); 0 disables the magnitude check
+    guard_threshold: float = 1e12
+
+    def __post_init__(self):
+        from repro_torch.registry import validate_fault_config
+        validate_fault_config(self)
+        if self.corrupt_mode not in ("nan", "inf", "bitflip"):
+            raise ValueError(f"unknown corrupt_mode {self.corrupt_mode!r} "
+                             f"(choose from nan | inf | bitflip)")
+        if self.byzantine_mode not in ("sign_flip", "scale"):
+            raise ValueError(f"unknown byzantine_mode {self.byzantine_mode!r} "
+                             f"(choose from sign_flip | scale)")
+        for name in ("drop_rate", "crash_rate", "recover_rate",
+                     "corrupt_rate", "straggle_rate"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        if any(b < 0 for b in self.byzantine):
+            raise ValueError(f"byzantine node indices must be >= 0, "
+                             f"got {self.byzantine}")
+
+    @property
+    def active(self) -> bool:
+        """Whether any fault model is selected at all. Zero-rate kinds are
+        detected by :func:`repro_torch.faults.models.config_active`, so an
+        inactive config takes exactly the fault-free trainer path."""
+        return bool(self.kinds)
 
 
 @dataclass(frozen=True)

@@ -37,9 +37,11 @@ def params_from_numpy(tree: dict, device=None):
 
 def state_from_numpy(state, device=None) -> FedState:
     """A JAX package ``FedState`` (read by field name: ``params``,
-    ``opt.step/m/v``, ``ratios``, ``sizes``, ``round``) -> the port's
-    :class:`repro_torch.core.cdfl.FedState`. Only the stateless dense
-    transport is ported, so ``tstate`` must be empty."""
+    ``opt.step/m/v``, ``ratios``, ``sizes``, ``round``, ``fstate``) -> the
+    port's :class:`repro_torch.core.cdfl.FedState`. Only the stateless dense
+    transport is ported, so ``tstate`` must be empty. ``fstate``, the
+    straggle replay buffer of a faulted run, comes across as a (K, P) f32
+    buffer (or ``()`` when the run keeps none)."""
     dev = resolve_device(device)
     buf, layout = params_from_numpy(dict(state.params), dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -53,9 +55,17 @@ def state_from_numpy(state, device=None) -> FedState:
                          f"params buffer {tuple(buf.shape)}")
     if len(getattr(state, "tstate", ())):
         raise ValueError("stateful transports are not ported yet")
+    fstate = getattr(state, "fstate", ())
+    if not isinstance(fstate, tuple):
+        fstate = torch.tensor(np.asarray(fstate), **f32)
+        if fstate.shape != buf.shape:
+            raise ValueError(f"straggle buffer {tuple(fstate.shape)} does "
+                             f"not match the params buffer "
+                             f"{tuple(buf.shape)}")
     ratios = torch.tensor(np.asarray(state.ratios), **f32)
     sizes = torch.tensor(np.asarray(state.sizes), **f32)
-    return FedState(buf, layout, opt, ratios, sizes, int(state.round))
+    return FedState(buf, layout, opt, ratios, sizes, int(state.round), (),
+                    fstate)
 
 
 def sparse_eta_from_numpy(sp, device=None) -> SparseEta:

@@ -24,6 +24,17 @@ two segments of a run equal one unsegmented run. It takes an explicit
 ``(R, K, S, B)`` batch-index stack, so a run can replay the JAX
 package's batches exactly, or samples one from a ``torch.Generator``.
 
+Faults (``FedConfig.faults``) compile on the host into per-round
+schedules (:mod:`repro_torch.faults.models`): the link mask edits the
+stacks once per run, and each round builds what every node puts on the
+wire (a straggler's stale replay, an attacker's flipped or scaled buffer,
+a corrupted frame), quarantines poisoned payloads, mixes, and afterwards
+rolls crashed or diverged nodes back to their round-entry params and Adam
+state. Robust mixing (``FedConfig.robust``) replaces eq. 5 with a
+coordinate-wise trimmed mean or median over the neighbor payloads (kernel
+B7). A round's fault handling gates on device tensors, never on a host
+read.
+
 ``build_trainer`` refuses what the port does not run yet (see
 :data:`repro_torch.registry.NOT_PORTED`).
 """
@@ -33,12 +44,14 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import faults as faults_lib
 from repro_torch import mobility as mobility_lib
 from repro_torch import registry
 from repro_torch.configs.base import FedConfig, HierarchyConfig, TrainConfig
 from repro_torch.core import flatten, sketch, topology
 from repro_torch.core import transport as transport_lib
 from repro_torch.device import resolve_device
+from repro_torch.faults import robust as robust_lib
 from repro_torch.hierarchy import mixing as hier_lib
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import FlatAdamState, flat_adam
@@ -52,6 +65,9 @@ class FedState(NamedTuple):
     sizes: torch.Tensor           # (K,) raw dataset sizes E_k
     round: int
     tstate: Any = ()              # transport state
+    # (K, P) straggle replay buffer (what each node broadcast the round
+    # before) when the fault config can straggle, else ()
+    fstate: Any = ()
 
     @property
     def params(self) -> dict:
@@ -98,7 +114,7 @@ def _node_sketches(node_items: torch.Tensor, fed: FedConfig):
 
 
 def _refuse_unported(fed: FedConfig) -> None:
-    for name in ("faults", "robust", "ingest"):
+    for name in ("ingest",):
         if getattr(fed, name) is not None:
             raise NotImplementedError(
                 f"FedConfig.{name} is not ported to repro_torch yet: "
@@ -112,10 +128,20 @@ def _refuse_unported(fed: FedConfig) -> None:
                 f"yet: {item}")
 
 
+def _freeze_rows(new, old, keep: torch.Tensor):
+    """Per-node ``where`` over a tuple of tensors whose leading axis is the
+    node: rows with ``keep`` False take their round-entry values."""
+    return type(new)(*(
+        torch.where(keep.reshape((keep.shape[0],) + (1,) * (n.dim() - 1)),
+                    n, o) for n, o in zip(new, old)))
+
+
 def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
-                  device=None) -> Trainer:
+                  device=None, eval_fn: Optional[Callable] = None) -> Trainer:
     """``loss_fn(params, batch) -> (K,)`` per-node losses, for node-stacked
     parameter views and a batch whose leaves are ``(K, B, ...)``.
+    ``eval_fn(params) -> (K,)``, for node-stacked parameter views, adds a
+    per-round ``eval`` metric.
 
     ``device=None`` runs on the card; pass ``device="cpu"`` for the plain
     PyTorch path."""
@@ -153,6 +179,30 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 f"(server average) — got transport={fed.transport}/"
                 f"{fed.wire_dtype}/staleness={fed.staleness}")
         transport = None
+    # Fault injection and robust mixing act on the once-per-round
+    # full-buffer wire exchange, which the fedavg server average lacks.
+    fault_capable = spec.uses_transport
+    if fed.faults is not None and fed.faults.active and not fault_capable:
+        raise ValueError(
+            f"{fed.algorithm} has no full-buffer wire exchange to "
+            f"inject faults into (fault injection supports the "
+            f"transport-routed algorithms: cdfl, cfa, metropolis, ...)")
+    # a FaultConfig whose every selected kind has zero rate builds the
+    # exact fault-free trainer (bit-identical runs)
+    faulty = fed.faults is not None and faults_lib.config_active(fed.faults)
+    has_byz, has_corrupt, has_straggle = (
+        faults_lib.wire_kinds(fed.faults) if faulty else (False,) * 3)
+    robust_fn = robust_lib.make_robust(fed)
+    if robust_fn is not None:
+        if not fault_capable:
+            raise ValueError(
+                f"{fed.algorithm} has no full-buffer wire exchange for "
+                f"robust aggregation to replace")
+        if not isinstance(transport, transport_lib.DenseTransport):
+            raise ValueError(
+                "robust aggregation needs every neighbor row "
+                "materialized: use the dense transport "
+                f"(got {type(transport).__name__})")
     fopt = flat_adam(train.learning_rate, train.beta1, train.beta2,
                      train.eps, train.weight_decay, train.grad_clip)
 
@@ -176,7 +226,10 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                              f"{tuple(items.shape)}")
         ratios, sizes = _node_sketches(items, fed)
         tstate = transport.init_state(buf) if transport else ()
-        return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate)
+        # a round-0 straggler replays the init broadcast
+        fstate = buf if has_straggle else ()
+        return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate,
+                        fstate)
 
     def mixing(state: FedState):
         """The static graph's weights in the config's format, and gamma."""
@@ -295,20 +348,35 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             raise ValueError(f"gamma stack shape {tuple(gammas.shape)} != "
                              f"{(num_rounds,)}")
 
-    def mix_buf(buf, sizes, eta, gamma, tstate, rnd):
+    def mix_buf(buf, sizes, eta, gamma, tstate, rnd, sent=None):
+        """The round's exchange. ``sent`` (fault injection) overrides the
+        per-node wire payloads; ``None`` means every node broadcasts its
+        clean buffer."""
         if transport is None:
             # fedavg: server average with weights E_i / sum E
             w = sizes / sizes.sum()
             a = w[None, :].expand(k, k).contiguous()
             return flatten.apply_matrix_flat(buf, a), tstate
         if hier_cfg is not None:
-            # two-tier cluster consensus: the intra tier reads the wire
-            # payloads, the leader tier and the bursts the f32 buffer
-            wire = transport.wire(buf)
+            # two-tier cluster consensus: the intra tier's neighbor terms
+            # read the (possibly fault-overridden) wire payloads, its self
+            # term the node's own clean payload; the leader tier and the
+            # bursts read the f32 buffer
+            if sent is None:
+                wire = wself = transport.wire(buf)
+            else:
+                wire = transport.codec.encode(sent)
+                wself = transport.codec.encode(buf)
             return hier_lib.hier_mix_flat(
-                buf, eta, gamma, wire=wire, wire_self=wire,
+                buf, eta, gamma, wire=wire, wire_self=wself,
                 burst_passes=hier_cfg.remerge_burst), tstate
-        return transport.exchange(buf, eta, gamma, tstate, rnd)
+        if robust_fn is not None:
+            # order-statistic consensus over the neighborhood payloads
+            # (codec'd like any wire traffic) instead of eq. 5
+            payload = transport.codec.roundtrip(buf if sent is None
+                                                else sent)
+            return robust_fn(buf, payload, eta, gamma), tstate
+        return transport.exchange(buf, eta, gamma, tstate, rnd, sent=sent)
 
     def local_steps(buf, opt, layout, data, idx_r):
         """``local_steps`` Adam steps of every node; idx_r (K, S, B)."""
@@ -343,7 +411,9 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
 
         Returns (state, metrics): ``loss`` (R, K), ``disagreement`` (R,)
         and ``gamma`` (R,); under the hierarchical format also
-        ``gamma_intra`` (R,) and ``clusters`` (R,)."""
+        ``gamma_intra`` (R,) and ``clusters`` (R,); with ``eval_fn``,
+        ``eval`` (R, K); under faults, ``health``, ``quarantined`` and
+        ``frozen`` (R, K)."""
         data = {name: torch.as_tensor(v, device=dev)
                 for name, v in data.items()}
         max_items = next(iter(data.values())).shape[1]
@@ -368,30 +438,88 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         else:
             etas, gammas = explicit_stacks(eta_stack, gamma_stack)
         check_stacks(etas, gammas, num_rounds)
+        plan = None
+        if faulty:
+            # this segment's absolute rounds (generated from round 0 and
+            # sliced); the surviving-link mask edits the stacks once. Rows
+            # only lose mass, so the gammas of the unmasked stacks stay
+            # within the stability bound.
+            plan = faults_lib.compile_plan(fed.faults, num_rounds, k,
+                                           start=state.round)
+            mask = torch.as_tensor(plan.link_mask, device=dev)
+            if isinstance(etas, hier_lib.HierEta):
+                etas = hier_lib.masked_hier_stack(etas, mask)
+            elif isinstance(etas, topology.SparseEta):
+                etas = mobility_lib.masked_sparse_stack(etas, mask)
+            else:
+                etas = mobility_lib.masked_eta_stack(etas, mask)
+            del mask
+            health, byz, corrupt, straggle = (
+                torch.as_tensor(a, device=dev) for a in
+                (plan.health, plan.byz, plan.corrupt, plan.straggle))
         # every update below is out of place, so ``state`` stays as it was
         buf, opt, tstate = state.buf, state.opt, state.tstate
-        losses, dis, gamma_intra, clusters = [], [], [], []
+        prev = state.fstate
+        if faulty and has_straggle and not isinstance(prev, torch.Tensor):
+            prev = buf
+        series = {name: [] for name in (
+            "loss", "disagreement", "gamma_intra", "clusters", "eval",
+            "health", "quarantined", "frozen")}
         for r in range(num_rounds):
             eta_r = round_slice(etas, r)
+            sent = None
+            if faulty:
+                # what each node puts on the wire this round: its fresh
+                # buffer, a straggler's stale replay, an attacker's
+                # flipped/scaled version, a corrupted frame, in that order
+                sent = buf
+                if has_straggle:
+                    sent = torch.where(straggle[r][:, None] > 0, prev, sent)
+                if has_byz:
+                    sent = sent * byz[r][:, None]
+                if has_corrupt:
+                    sent = faults_lib.corrupt_rows(
+                        sent, corrupt[r], fed.faults.corrupt_mode)
+                # receive-side self-healing before anything mixes
+                sent, eta_r, quarantined = faults_lib.wire_guard(
+                    sent, buf, eta_r, fed.faults.guard_threshold)
+            entry_buf, entry_opt = buf, opt
             buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r], tstate,
-                                  state.round + r)
+                                  state.round + r, sent=sent)
             buf, opt, loss = local_steps(buf, opt, state.layout, data,
                                          idx[r])
-            losses.append(loss)
-            dis.append(flatten.disagreement_flat(buf, state.layout.total))
+            series["loss"].append(loss)
+            series["disagreement"].append(
+                flatten.disagreement_flat(buf, state.layout.total))
             if hier_cfg is not None:
                 # what the clusters ran at, and how many there were
-                gamma_intra.append(eta_r.gamma_node.mean())
-                clusters.append(torch.zeros(k, device=dev).index_fill_(
-                    0, eta_r.cluster, 1.0).sum())
-        metrics = {"loss": torch.stack(losses),
-                   "disagreement": torch.stack(dis),
-                   "gamma": gammas.clone()}
-        if hier_cfg is not None:
-            metrics["gamma_intra"] = torch.stack(gamma_intra)
-            metrics["clusters"] = torch.stack(clusters)
+                series["gamma_intra"].append(eta_r.gamma_node.mean())
+                series["clusters"].append(torch.zeros(
+                    k, device=dev).index_fill_(0, eta_r.cluster, 1.0).sum())
+            if eval_fn is not None:
+                with torch.no_grad():
+                    series["eval"].append(
+                        eval_fn(flatten.unflatten(buf, state.layout)))
+            if faulty:
+                # crashed nodes freeze for the outage (their eta row and
+                # column were zeroed, so the mix was a pure self-update);
+                # nodes whose buffer went non-finite roll back to their
+                # round-entry params and Adam state, step counters too
+                finite = torch.isfinite(buf).all(dim=1)
+                keep = (health[r] > 0) & finite
+                buf = torch.where(keep[:, None], buf, entry_buf)
+                opt = _freeze_rows(opt, entry_opt, keep)
+                series["health"].append(health[r])
+                series["quarantined"].append(quarantined)
+                series["frozen"].append(
+                    ((health[r] > 0) & ~finite).to(torch.float32))
+                if has_straggle:
+                    # next round's stale replay is what was broadcast now
+                    prev = entry_buf
+        metrics = {name: torch.stack(v) for name, v in series.items() if v}
+        metrics["gamma"] = gammas.clone()
         final = FedState(buf, state.layout, opt, state.ratios, state.sizes,
-                         state.round + num_rounds, tstate)
+                         state.round + num_rounds, tstate, prev)
         return final, metrics
 
     return Trainer(init=init, mixing=mixing, run_rounds=run_rounds,

@@ -167,12 +167,14 @@ def mixing_weights(adj: torch.Tensor, rule: str,
 def renormalize_rows(eta: torch.Tensor,
                      target_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Rescale each row's surviving entries to sum to ``target_rows[k]``
-    (default 1); fully drained rows stay all-zero, never NaN."""
-    s = eta.sum(dim=1)
+    (default 1); fully drained rows stay all-zero, never NaN. Rows run
+    along the last axis, so (R, K, K) stacks and (K, D) / (R, K, D)
+    sparse weight rows renormalize the same way."""
+    s = eta.sum(dim=-1)
     t = torch.ones_like(s) if target_rows is None else target_rows
     scale = torch.where(s > 0, t / torch.clamp_min(s, 1e-12),
                         torch.zeros_like(s))
-    return eta * scale[:, None]
+    return eta * scale[..., None]
 
 
 def max_row_sum(eta) -> torch.Tensor:

@@ -91,9 +91,12 @@ class DenseTransport:
     def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
         """Eq. 5 on ``buf`` with dense (K, K) weights or a
         :class:`repro_torch.core.topology.SparseEta`. ``sent`` overrides
-        the per-node wire payloads (fault injection, dense only): the
-        neighbor terms then read the codec'd payloads while the self term
-        keeps each node's own buffer through the codec."""
+        the per-node wire payloads (fault injection): the neighbor terms
+        then read the codec'd payloads while the self term keeps each
+        node's own buffer through the codec (a node never receives
+        itself). The sparse form is kernel B6 with the step size broadcast
+        to every node: the gathered rows come from ``sent``, the self
+        rescale from ``buf``."""
         sparse = isinstance(eta, SparseEta)
         if sent is None:
             wire = self.wire(buf)
@@ -103,18 +106,20 @@ class DenseTransport:
             else:
                 out = flatten.mix_flat(buf, eta, gamma, wire=wire)
             return out, state
-        if sparse:
-            raise NotImplementedError(
-                "a sparse exchange with per-node payloads (sent=...) runs "
-                "only under faults: ROADMAP queue A item 16 (faults and "
-                "robust mixing, kernel B7)")
         codec = self.codec
+        g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+        if sparse:
+            gamma_node = g.reshape(1).expand(buf.shape[0]).contiguous()
+            out = flatten.cluster_mix_flat(
+                buf, eta.idx, eta.val, gamma_node,
+                wire=codec.encode(sent).contiguous(),
+                wire_self=codec.encode(buf))
+            return out, state
         w_nb = codec.roundtrip(sent)
         w_self = codec.roundtrip(buf)
         eta32 = eta.to(buf.dtype)
         row = eta32.sum(dim=1)
         mixed = flatten.apply_matrix_flat(w_nb.contiguous(), eta32)
-        g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
         return buf + g * (mixed - row[:, None] * w_self), state
 
 

@@ -28,13 +28,13 @@ import torch
 from repro_torch.core import flatten, topology
 from repro_torch.hierarchy import clustering, leaders
 from repro_torch.mobility import links, traces
-from repro_torch.mobility.mixing import _sparse_rule, side_device, \
-    sparse_gamma_stack
+from repro_torch.mobility.mixing import _sparse_rule, masked_sparse_stack, \
+    side_device, sparse_gamma_stack
 
 __all__ = [
     "HierEta", "hier_geometry", "build_hier_stacks", "hier_static_stacks",
     "hier_scenario_stacks", "constant_hier_stacks", "hier_mix_flat",
-    "hier_gamma_stack",
+    "hier_gamma_stack", "masked_hier_stack",
 ]
 
 
@@ -234,6 +234,16 @@ def constant_hier_stacks(h: HierEta, gamma, rounds: int):
 def hier_gamma_stack(h: HierEta, gamma_cap: float) -> torch.Tensor:
     """(R,) inter-tier step sizes of a hierarchical stack."""
     return sparse_gamma_stack(h.inter, gamma_cap)
+
+
+def masked_hier_stack(h: HierEta, link_mask) -> HierEta:
+    """Compose a fault-plan ``(R, K, K)`` link mask into BOTH tiers: a
+    crashed node's intra row drains to zero (pure self-update), its columns
+    vanish from co-members' rows with mass-preserving renorm, and a crashed
+    LEADER also drops out of the inter tier, so its cluster skips
+    inter-cluster mixing for the outage."""
+    return h._replace(intra=masked_sparse_stack(h.intra, link_mask),
+                      inter=masked_sparse_stack(h.inter, link_mask))
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "repro_cluster_mix_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _P],
     },
+    "robust_agg": {
+        "repro_robust_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

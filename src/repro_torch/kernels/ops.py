@@ -1,4 +1,4 @@
-"""Public entry points of the B1-B6 kernels.
+"""Public entry points of the B1-B7 kernels.
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
@@ -13,6 +13,7 @@ from repro_torch.kernels import cluster_mix as _clm
 from repro_torch.kernels import cnd_sketch as _cs
 from repro_torch.kernels import consensus_mix as _cm
 from repro_torch.kernels import ref
+from repro_torch.kernels import robust_agg as _ra
 from repro_torch.kernels import sparse_mix as _sm
 
 
@@ -56,6 +57,15 @@ def cluster_mix(idx, val, master, wself, wire, gamma_node) -> torch.Tensor:
     if _on_cuda(master):
         return _clm.cluster_mix(idx, val, master, wself, wire, gamma_node)
     return ref.cluster_mix(idx, val, master, wself, wire, gamma_node)
+
+
+def robust_agg(weights, mask, buf, sent) -> torch.Tensor:
+    """Coordinate-wise robust neighbor aggregation (B7):
+    ``OUT[k] = sum_j weights[k, j] * sort_i({payload_i : mask[k, i]})[j]``,
+    payload_i = ``sent[i]`` except the receiver's own slot ``buf[k]``."""
+    if _on_cuda(buf):
+        return _ra.robust_agg(weights, mask, buf, sent)
+    return ref.robust_agg(weights, mask, buf, sent)
 
 
 def cnd_bitmaps(items, num_hashes: int = 3, m: int = 8192) -> torch.Tensor:

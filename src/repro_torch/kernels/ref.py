@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the B1-B6 kernels: the CPU path of
+"""Plain PyTorch versions of the B1-B7 kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
 against on the card. Device-agnostic tensor code."""
 from __future__ import annotations
@@ -62,6 +62,44 @@ def cluster_mix(idx: torch.Tensor, val: torch.Tensor, master: torch.Tensor,
     row = val32.sum(dim=1)
     mixed = sparse_neighbor_sum(idx, val32, wire)
     return master + g[:, None] * (mixed - row[:, None] * wself.float())
+
+
+# candidates per column chunk of robust_agg: 2**25 f32 values, 128 MB
+ROBUST_CHUNK_ELEMS = 1 << 25
+
+
+def robust_sorted(mask: torch.Tensor, buf: torch.Tensor,
+                  sent: torch.Tensor) -> torch.Tensor:
+    """The sorted (K, K, C) candidates of one column chunk of
+    :func:`robust_agg`: receiver k's own slot read from ``buf``, masked
+    slots at +inf, sorted over the sender axis, non-finite values
+    zeroed."""
+    k = buf.shape[0]
+    eye = torch.eye(k, dtype=torch.bool, device=buf.device)[:, :, None]
+    cand = torch.where(eye, buf[None, :, :], sent[None, :, :])
+    cand = torch.where(mask[:, :, None] > 0, cand, torch.inf)
+    v = torch.sort(cand, dim=1).values
+    return torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+
+
+def robust_agg(weights: torch.Tensor, mask: torch.Tensor, buf: torch.Tensor,
+               sent: torch.Tensor) -> torch.Tensor:
+    """``OUT[k] = sum_j weights[k, j] * sort_i({payload_i : mask[k, i]})[j]``
+    with payload_i = ``sent[i]``, except receiver k's own slot, which is
+    ``buf[k]``. Masked slots sort to the tail as +inf and every non-finite
+    value is zeroed after the sort, as the JAX package's
+    ``robust_agg_xla`` computes it. The (K, K, C) candidate tensor is
+    built over column chunks of at most ``ROBUST_CHUNK_ELEMS`` elements,
+    so the whole (K, K, P) tensor never exists (6.3 GB at K=256,
+    P=23,936)."""
+    w32, m32 = weights.float(), mask.float()
+    b32, s32 = buf.float(), sent.float()
+    k, p = b32.shape
+    step = max(1, ROBUST_CHUNK_ELEMS // (k * k))
+    out = [(w32[:, :, None] * robust_sorted(
+                m32, b32[:, c:c + step], s32[:, c:c + step])).sum(dim=1)
+           for c in range(0, p, step)]
+    return torch.cat(out, dim=1).to(buf.dtype)
 
 
 def cnd_bitmaps(items: torch.Tensor, num_hashes: int = 3,

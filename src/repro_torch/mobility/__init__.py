@@ -21,7 +21,9 @@ from repro_torch.mobility.links import (degree_stats, handover_stats,
                                         sparse_radio_stack)
 from repro_torch.mobility.mixing import (constant_sparse_stacks,
                                          constant_stacks, eta_stack,
-                                         gamma_stack, sparse_eta_stack,
+                                         gamma_stack, masked_eta_stack,
+                                         masked_sparse_stack,
+                                         sparse_eta_stack,
                                          sparse_gamma_stack)
 from repro_torch.mobility.traces import trace
 
@@ -31,7 +33,7 @@ __all__ = [
     "sparse_radio_stack", "handover_stats", "degree_stats",
     "num_components", "eta_stack", "gamma_stack", "sparse_eta_stack",
     "sparse_gamma_stack", "constant_stacks", "constant_sparse_stacks",
-    "links", "mixing", "traces",
+    "masked_eta_stack", "masked_sparse_stack", "links", "mixing", "traces",
 ]
 
 

@@ -37,6 +37,33 @@ def gamma_stack(etas: torch.Tensor, gamma_cap: float) -> torch.Tensor:
     return torch.stack([topology.stable_gamma(e, gamma_cap) for e in etas])
 
 
+def masked_eta_stack(etas: torch.Tensor, link_mask) -> torch.Tensor:
+    """Compose a fault-plan ``(R, K, K)`` link mask into an eta stack.
+
+    Each round's surviving entries are rescaled to the row's pre-mask mass
+    (``topology.renormalize_rows``): for row-normalized policies that is
+    exactly recomputing the weights on the masked adjacency, for
+    metropolis it keeps the sub-stochastic row mass. Rows drained by a
+    crash or total link loss come out all-zero: a pure self-update."""
+    etas = etas.to(torch.float32)
+    mask = torch.as_tensor(link_mask, dtype=torch.float32,
+                           device=etas.device)
+    return topology.renormalize_rows(etas * mask, etas.sum(dim=-1))
+
+
+def masked_sparse_stack(sp: topology.SparseEta,
+                        link_mask) -> topology.SparseEta:
+    """Compose a fault-plan ``(R, K, K)`` link mask into a sparse stack by
+    editing the (R, K, D) rows: each kept edge gathers its mask bit,
+    dropped edges go to zero and the survivors are rescaled to the row's
+    pre-mask mass (the sparse twin of :func:`masked_eta_stack`)."""
+    mask = torch.as_tensor(link_mask, dtype=torch.float32,
+                           device=sp.val.device)
+    m = torch.gather(mask, -1, sp.idx.long())
+    return topology.SparseEta(
+        sp.idx, topology.renormalize_rows(sp.val * m, sp.val.sum(dim=-1)))
+
+
 def constant_stacks(eta: torch.Tensor, gamma, rounds: int):
     """Broadcast one (K, K) eta / scalar gamma to (R, K, K) / (R,): the
     static-topology case of the per-round stacks."""

@@ -11,6 +11,10 @@ caller.
   (:mod:`repro_torch.mobility.traces`);
 * :data:`leader_policies` — cluster-leader scores
   (:mod:`repro_torch.hierarchy.leaders`);
+* :data:`fault_models`    — fault injectors compiled into per-round
+  schedules (:mod:`repro_torch.faults.models`);
+* :data:`robust_rules`    — Byzantine-robust aggregation rules replacing
+  the eq. 5 mix (:mod:`repro_torch.faults.robust`);
 * :data:`algorithms`      — trainer-level schemes
   (:class:`AlgorithmSpec`, registered by :mod:`repro_torch.core.baselines`).
 
@@ -80,6 +84,8 @@ wire_codecs = Registry("wire codec")
 mixing_policies = Registry("mixing policy")
 mobility_traces = Registry("mobility trace")
 leader_policies = Registry("leader policy")
+fault_models = Registry("fault model")
+robust_rules = Registry("robust aggregation rule")
 algorithms = Registry("algorithm")
 
 # (config field, value) -> the ROADMAP item that ports it
@@ -90,10 +96,6 @@ NOT_PORTED = {
                            "transports)",
     ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
                              "transports)",
-    ("faults", None): "ROADMAP queue A item 16 (faults and robust mixing, "
-                      "kernel B7)",
-    ("robust", None): "ROADMAP queue A item 16 (faults and robust mixing, "
-                      "kernel B7)",
     ("ingest", None): "ROADMAP queue A item 19 (ingest)",
 }
 
@@ -108,6 +110,8 @@ def ensure_plugins() -> None:
     import repro_torch.core.topology    # noqa: F401  (mixing policies)
     import repro_torch.core.transport   # noqa: F401  (transports, codecs)
     import repro_torch.mobility.traces  # noqa: F401  (mobility traces)
+    import repro_torch.faults.models    # noqa: F401  (fault models)
+    import repro_torch.faults.robust    # noqa: F401  (robust rules)
     import repro_torch.hierarchy.leaders  # noqa: F401  (leader policies)
     import repro_torch.core.baselines   # noqa: F401  (algorithms)
     _loaded = True
@@ -126,6 +130,8 @@ def validate_fed_config(fed) -> None:
     wire_codecs.get(fed.wire_dtype)
     mixing_policies.get(fed.mixing)
     _check_name(algorithms, "algorithm", fed.algorithm)
+    if fed.robust is not None:
+        robust_rules.get(fed.robust)
     fmt = fed.mixing_format
     if fmt not in ("dense", "sparse", "hierarchical"):
         raise ValueError(f"unknown mixing_format {fmt!r} "
@@ -183,6 +189,12 @@ def validate_hierarchy_config(hier) -> None:
                          f"got {hier.remerge_burst}")
     if hier.intra_rule is not None:
         mixing_policies.get(hier.intra_rule)
+
+
+def validate_fault_config(faults) -> None:
+    ensure_plugins()
+    for kind in faults.kinds:
+        fault_models.get(kind)
 
 
 def validate_mobility_config(mob) -> None:

@@ -2,7 +2,8 @@
 versions of kernels B5 ``sparse_mix`` and B6 ``cluster_mix`` against the
 Pallas kernels in interpret mode (at the 1e-5 of tests/test_sparse_mix.py
 and tests/test_hierarchy.py), ``sparsify_eta`` index for index on tied
-rows, the flat sparse mixes, the sparse transport branch, and the checks
+rows, the flat sparse mixes, the sparse transport branch (with and without
+per-node fault payloads), and the checks
 the CUDA wrappers make before they launch. The CUDA kernels run only on
 the card (``chip_smoke.py``)."""
 import jax.numpy as jnp
@@ -174,9 +175,17 @@ def test_dense_transport_sparse_exchange_matches_reference(wire):
     got, _ = tr.exchange(torch.tensor(buf), tsp, torch.tensor(0.45))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tr.exchange(torch.tensor(buf), tsp, 0.45,
-                    sent=torch.tensor(buf))
+    # the fault branch: per-node payloads that differ from the buffer
+    # feed the gathered rows, the buffer the self rescale (kernel B6 with
+    # the step size broadcast to every node)
+    sent = (buf + rng.standard_normal((k, p)) * 0.1).astype(np.float32)
+    want, _ = jtransport.DenseTransport(
+        wire_dtype=wire, simulate_wire=True).exchange(
+        jnp.asarray(buf), jsp, jnp.float32(0.45), sent=jnp.asarray(sent))
+    got, _ = tr.exchange(torch.tensor(buf), tsp, torch.tensor(0.45),
+                         sent=torch.tensor(sent))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=0)
 
 
 def _counts():
