@@ -23,10 +23,19 @@ gated on the honest nodes' accuracy), the faulted robust K=256 Manhattan
 fleet (every fault kind, trimmed mean) and the faulted K=1024 sparse and
 hierarchical fleets (link drops, crashes, bit flips, stragglers), each
 with telemetry held against the compiled fault plan and checked against
-the CPU at K=64 (K=8 for the platoon); the kernel table as one JSON line;
-and the verdict as the last line. Every path phase zeroes the kernels'
-launch counts before it runs and checks them after. Exits non-zero, with
-no verdict, when CUDA is absent or any check fails.
+the CPU at K=64 (K=8 for the platoon); the paper's remaining baselines:
+B8 held against its plain version (rows 8,192 with N=8 in f32 and bf16,
+and the paper MLP's (187, 128) rows with N=2), B8 driven through
+``ops.consensus_mix`` on the K=4 ring's trained buffers, the
+``core/consensus.py`` one-shots, dpsgd and cdfa_m (prefixes 40 and
+23,860, f32 and bf16 wire) at K=4, cdfa_m on a K=256 ring (prefix
+23,560), dpsgd on the K=1024 fleet's stacks (sparse and hierarchical),
+each checked against the CPU, and the paper's Tables 1-4 MLP comparison
+of cdfl, cfa, cdfa_m and dpsgd over 60 rounds (rounds to 80% test
+accuracy per station, reported, not gated); the kernel table as one JSON
+line; and the verdict as the last line. Every path phase zeroes the
+kernels' launch counts before it runs and checks them after. Exits
+non-zero, with no verdict, when CUDA is absent or any check fails.
 """
 from __future__ import annotations
 
@@ -75,6 +84,11 @@ FLEET_FAULTS = dict(kinds=("link_drop", "crash", "corrupt", "straggle"),
 # tests/test_faults.py:375, the Byzantine platoon
 BYZ_PLATOON = dict(kind="platoon", speed=20.0, speed_jitter=0.3,
                    radio_range=250.0, dt=2.0, seed=0)
+# benchmarks/paper_tables.py:24-32, the paper's Tables 1-4 (MLP half)
+TABLE_ALGS = ["cdfl", "cfa", "cdfa_m", "dpsgd"]
+TABLE_RATIOS = [0.1, 0.2, 0.4, 0.8]
+TABLE_NOISE = 2.5
+TABLE_ROUNDS = 60
 
 
 def fail(msg: str) -> None:
@@ -165,6 +179,7 @@ def counted():
     from repro_torch.kernels import robust_agg, sparse_mix
     return {"flat_mix": consensus_mix.flat_mix,
             "flat_consensus": consensus_mix.flat_consensus,
+            "consensus_mix": consensus_mix.consensus_mix,
             "cnd_bitmaps": cnd_sketch.cnd_bitmaps,
             "cnd_popcount": cnd_sketch.cnd_popcount,
             "sparse_mix": sparse_mix.sparse_mix,
@@ -192,6 +207,21 @@ def device_profile(prof) -> tuple[dict, int]:
                 ev.time_range.elapsed_us() / 1e3
             n_dev += 1
     return busy, n_dev
+
+
+def paired_ms(run_a, run_b, blocks: int, rounds: int) -> tuple:
+    """ms per round of two runners timed in turns a, b, b, a (``blocks``
+    times, ``rounds`` rounds a turn) within one call, so that host noise
+    falls on both alike: (median a, median b, every turn of a, of b)."""
+    times = ([], [])
+    for _ in range(blocks):
+        for side in (0, 1, 1, 0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (run_a, run_b)[side](rounds)
+            torch.cuda.synchronize()
+            times[side].append(1e3 * (time.perf_counter() - t0) / rounds)
+    return (statistics.median(times[0]), statistics.median(times[1])) + times
 
 
 def main() -> None:
@@ -529,13 +559,64 @@ def main() -> None:
         rows["robust_agg"]["max_abs_err"] = max(
             rows["robust_agg"]["max_abs_err"], err)
     del buf, sent
-    print("kernels all seven agree with their plain versions "
-          f"(B1/B2/B5/B6/B7 rtol={RTOL} atol={ATOL}, B3/B4 bit for bit)",
-          flush=True)
+
+    # B8 at rows 8,192 with N=8 in f32 and bf16, then at the paper MLP's
+    # buffer as (187, 128) rows with its two ring neighbors (the path's
+    # shape, last). The library yardstick is cuBLAS's gemv: torch.mv of
+    # the neighbor stack viewed as (N, rows*L), transposed, with eta, then
+    # the delta form around it.
+    def bf16_ulp(x):
+        """One bf16 unit in the last place of each f32 value of x."""
+        a = x.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+        return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+    for rows_b8, n_b8, dt in ((8192, 8, torch.float32),
+                              (8192, 8, torch.bfloat16),
+                              (P // 128, 2, torch.float32)):
+        w = torch.randn((rows_b8, 128), generator=gen, device=dev).to(dt)
+        nb = torch.randn((n_b8, rows_b8, 128), generator=gen,
+                         device=dev).to(dt)
+        eta = torch.rand((n_b8,), generator=gen, device=dev)
+        eta = (eta / eta.sum()).contiguous()
+        gamma = torch.full((1,), 0.5, device=dev)
+        out = cm.consensus_mix(w, nb, eta, gamma)
+        want = ref.consensus_mix(w, nb, eta, gamma)
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        label = f"consensus_mix rows={rows_b8} N={n_b8} {str(dt)[6:]}"
+        if dt == torch.float32:
+            if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
+                fail(f"{label} disagrees with its plain version: max |diff| "
+                     f"{diff.max().item():.3e}")
+        elif not bool((diff <= bf16_ulp(want.float())).all()):
+            fail(f"{label} differs from its plain version by more than one "
+                 f"bf16 ulp: max |diff| {diff.max().item():.3e}")
+        e = rows_b8 * 128
+        nb_t = nb.view(n_b8, e).t()
+        eta_dt, eta_sum = eta.to(dt), eta.sum().to(dt)
+
+        def gemv(w=w, nb_t=nb_t, eta_dt=eta_dt, eta_sum=eta_sum,
+                 rows_b8=rows_b8):
+            nbsum = torch.mv(nb_t, eta_dt).view(rows_b8, 128)
+            return w + 0.5 * (nbsum - eta_sum * w)
+
+        record("consensus_mix", f"rows={rows_b8} L=128 N={n_b8} "
+               f"{str(dt)[6:]}", diff.max().item(),
+               lambda: cm.consensus_mix(w, nb, eta, gamma),
+               lambda: ref.consensus_mix(w, nb, eta, gamma), gemv,
+               (n_b8 + 2) * e * w.element_size() + 4 * n_b8 + 4,
+               (3 * n_b8 + 2) * e, F32_OPS_PER_S,
+               extra={"library": "torch.mv(neighbors (N, rows*L)^T, eta) "
+                                 "+ the delta form"})
+    del w, nb
+    print("kernels all eight agree with their plain versions "
+          f"(B1/B2/B5/B6/B7 and B8 f32 rtol={RTOL} atol={ATOL}, B8 bf16 "
+          f"within one bf16 ulp, B3/B4 bit for bit)", flush=True)
 
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
     totals = {name: 0 for name in read_counts()}
-    dense_only = {"sparse_mix": 0, "cluster_mix": 0, "robust_agg": 0}
+    dense_only = {"sparse_mix": 0, "cluster_mix": 0, "robust_agg": 0,
+                  "consensus_mix": 0}
 
     def add(counts):
         for name, c in counts.items():
@@ -582,18 +663,20 @@ def main() -> None:
         if not torch.isfinite(lossr).all() or (check_loss
                                                and not lossr[-1] < lossr[0]):
             fail(f"{fed.algorithm}: loss did not fall: {lossr.tolist()}")
-        return state, metrics, counts, diff, round_ms
+        return final, metrics, counts, diff, round_ms
 
-    fed = FedConfig(num_nodes=4, topology="ring", gamma=0.5, local_steps=10)
-    state, metrics, counts, diff, round_ms = drive(
+    fed_k4 = fed = FedConfig(num_nodes=4, topology="ring", gamma=0.5,
+                             local_steps=10)
+    cdfl4, metrics, counts, diff, cdfl4_ms = drive(
         fed, 10, 1, {"flat_mix": 10, "flat_consensus": 0, "cnd_bitmaps": 1,
                      "cnd_popcount": 1, **dense_only}, data4, items4)
     lossr = [round(v, 4) for v in metrics["loss"].mean(dim=1).tolist()]
     dis = [f"{v:.2e}" for v in metrics["disagreement"].tolist()]
-    print(f"path cdfl K=4 ratios={[round(v, 4) for v in state.ratios.tolist()]}"
+    ratios4 = [round(v, 4) for v in cdfl4.ratios.tolist()]
+    print(f"path cdfl K=4 ratios={ratios4}"
           f" loss/round={lossr} disagreement={dis} launches={counts} "
           f"card-vs-cpu max|param diff|={diff:.3e} card ms/round="
-          f"{round_ms:.3f}", flush=True)
+          f"{cdfl4_ms:.3f}", flush=True)
 
     # -- 5. fedavg at K=4 -------------------------------------------------
     fed = FedConfig(num_nodes=4, topology="ring", gamma=0.5, local_steps=10,
@@ -605,6 +688,158 @@ def main() -> None:
           f"{[round(v, 4) for v in metrics['loss'].mean(dim=1).tolist()]} "
           f"launches={counts} card-vs-cpu max|param diff|={diff:.3e} "
           f"card ms/round={round_ms:.3f}", flush=True)
+
+    def runner(tr, state, data, gen, stacks=None):
+        """``run(n)``: ``n`` more rounds of trainer ``tr`` from where its
+        last call left off. With ``stacks`` = (etas, gammas), keyed on the
+        absolute round, round r reads slice r."""
+        box = [state]
+
+        def run(n: int) -> None:
+            kw = {}
+            if stacks is not None:
+                r = box[0].round
+                kw = dict(eta_stack=round_slice(stacks[0], slice(r, r + n)),
+                          gamma_stack=stacks[1][r:r + n])
+            box[0], _ = tr.run_rounds(box[0], data, n, generator=gen, **kw)
+
+        return run
+
+    # -- 5a. kernel B8 through ops.consensus_mix ------------------------
+    # Each station of the K=4 ring mixes its trained buffer, seen as the
+    # (187, 128) rows of the paper MLP, with its two ring neighbors' under
+    # the ring's CND weights: eq. 5 node by node, which the trainer's B1
+    # computes for all nodes at once.
+    from repro_torch.core import consensus, flatten
+    from repro_torch.kernels import ops
+    tr4 = cdfl.build_trainer(loss, fed_k4, train)
+    eta4, gamma4 = tr4.mixing(cdfl4)
+    buf4 = cdfl4.buf
+    rows4 = buf4.view(4, P // 128, 128)
+    reset_counts()
+    mixed = []
+    for node in range(4):
+        nbrs = [(node - 1) % 4, (node + 1) % 4]
+        mixed.append(ops.consensus_mix(rows4[node], rows4[nbrs],
+                                       eta4[node, nbrs], gamma4))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("B8 via ops.consensus_mix", counts, {
+        "consensus_mix": 4, "flat_mix": 0, "flat_consensus": 0,
+        "cnd_bitmaps": 0, "cnd_popcount": 0, "sparse_mix": 0,
+        "cluster_mix": 0, "robust_agg": 0})
+    add(counts)
+    mixed = torch.stack(mixed).view(4, P)
+    cpu = torch.stack([ops.consensus_mix(
+        rows4[node].cpu(), rows4[[(node - 1) % 4, (node + 1) % 4]].cpu(),
+        eta4[node, [(node - 1) % 4, (node + 1) % 4]].cpu(), gamma4.cpu())
+        for node in range(4)]).view(4, P)
+    eq5 = ref.flat_mix(eta4, buf4, buf4, gamma4)
+    d_cpu = (mixed.cpu() - cpu).abs().max().item()
+    d_eq5 = (mixed - eq5).abs().max().item()
+    if not (d_cpu <= 1e-6 and d_eq5 <= 1e-6):
+        fail(f"B8 path: the per-node mix differs from the CPU by {d_cpu:.3e}"
+             f" and from the whole-buffer eq. 5 by {d_eq5:.3e} (> 1e-6)")
+    print(f"path B8 ops.consensus_mix K=4 ring, (187, 128) rows, N=2: "
+          f"launches={counts} card-vs-cpu max|diff|={d_cpu:.3e} vs "
+          f"whole-buffer eq. 5 max|diff|={d_eq5:.3e} (<= 1e-6)", flush=True)
+
+    # -- 5b. core/consensus.py one-shots on the K=4 params -----------------
+    params4 = flatten.unflatten(buf4, cdfl4.layout)
+    params4_cpu = {n: v.cpu() for n, v in params4.items()}
+    nbrs0 = [3, 1]
+    node0 = {n: v[0] for n, v in params4.items()}
+    nb0 = {n: v[nbrs0] for n, v in params4.items()}
+
+    def one_shots(params, node, nbrs, eta, gamma):
+        return {
+            "consensus_step": consensus.consensus_step(params, eta, gamma,
+                                                       self_weight=0.8),
+            "partial 0.5": consensus.partial_consensus_step(params, eta,
+                                                            gamma, 0.5),
+            "partial 0.75": consensus.partial_consensus_step(params, eta,
+                                                             gamma, 0.75),
+            "simulate_rounds": consensus.simulate_rounds(params, eta,
+                                                         gamma, 8),
+            "consensus_mix_pytree": ops.consensus_mix_pytree(
+                node, nbrs, eta[0, nbrs0], gamma)}
+
+    reset_counts()
+    card = one_shots(params4, node0, nb0, eta4, gamma4)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # B1: consensus_step, two partial steps, the pytree mix; B2: 8 rounds
+    expect_counts("consensus one-shots", counts, {
+        "flat_mix": 4, "flat_consensus": 8, "consensus_mix": 0,
+        "cnd_bitmaps": 0, "cnd_popcount": 0, "sparse_mix": 0,
+        "cluster_mix": 0, "robust_agg": 0})
+    add(counts)
+    host = one_shots(params4_cpu, {n: v[0] for n, v in params4_cpu.items()},
+                     {n: v[nbrs0] for n, v in params4_cpu.items()},
+                     eta4.cpu(), gamma4.cpu())
+    diffs = {}
+    for name, got in card.items():
+        want = host[name]
+        if name == "simulate_rounds":
+            (got, series), (want, want_series) = got, want
+            diffs["disagreement series"] = (series.cpu() - want_series).abs(
+                ).max().item()
+        diffs[name] = max((got[n].cpu() - want[n]).abs().max().item()
+                          for n in got)
+    if not max(diffs.values()) <= 1e-4:
+        fail(f"consensus one-shots differ between card and CPU: {diffs}")
+    series = card["simulate_rounds"][1].tolist()
+    print(f"path consensus one-shots K=4 launches={counts} card-vs-cpu "
+          f"max|diff|={ {n: f'{v:.3e}' for n, v in diffs.items()} } (<= 1e-4)"
+          f" disagreement series={[f'{v:.3e}' for v in series]}", flush=True)
+
+    # -- 5c. dpsgd at K=4: gossip (B1) before every local step ------------
+    fed = dataclasses.replace(fed_k4, algorithm="dpsgd")
+    _, metrics, counts, diff, round_ms = drive(
+        fed, 10, 13, {"flat_mix": 10 * fed.local_steps, "flat_consensus": 0,
+                      "cnd_bitmaps": 1, "cnd_popcount": 1, **dense_only},
+        data4, items4)
+    print(f"path dpsgd K=4 loss/round="
+          f"{[round(v, 4) for v in metrics['loss'][:, 0].tolist()]} "
+          f"disagreement="
+          f"{[f'{v:.2e}' for v in metrics['disagreement'].tolist()]} "
+          f"launches={counts} card-vs-cpu max|param diff|={diff:.3e} "
+          f"card ms/round={round_ms:.3f}", flush=True)
+    # dpsgd's extra cost over cdfl's round, timed in turns (ABBA) here
+    runs = []
+    for alg in ("cdfl", "dpsgd"):
+        tr = cdfl.build_trainer(loss, dataclasses.replace(fed_k4,
+                                                          algorithm=alg),
+                                train)
+        run = runner(tr, tr.init(p0, items4), data4,
+                     torch.Generator().manual_seed(18))
+        run(1)                                   # warm-up round
+        runs.append(run)
+    a_ms, b_ms, a_all, b_all = paired_ms(*runs, blocks=2, rounds=5)
+    print(f"paired K=4 ms/round (turns cdfl, dpsgd, dpsgd, cdfl, twice): "
+          f"cdfl={a_ms:.3f} dpsgd={b_ms:.3f} extra={b_ms - a_ms:.3f} "
+          f"turns cdfl={[round(t, 3) for t in a_all]} dpsgd="
+          f"{[round(t, 3) for t in b_all]}", flush=True)
+
+    # -- 5d. cdfa_m at K=4: the leaf prefix on the wire -------------------
+    # prefixes 40 (b1, b2) and 23,860 (every leaf, unpadded); a bf16 wire
+    # runs 2 rounds (bf16 rounding steps drift between summation orders)
+    for fraction in (0.5, 1.0):
+        for wire, rounds in (("f32", 5), ("bf16", 2)):
+            fed = dataclasses.replace(fed_k4, algorithm="cdfa_m",
+                                      cdfa_fraction=fraction,
+                                      wire_dtype=wire)
+            _, metrics, counts, diff, round_ms = drive(
+                fed, rounds, 14, {"flat_mix": rounds, "flat_consensus": 0,
+                                  "cnd_bitmaps": 1, "cnd_popcount": 1,
+                                  **dense_only}, data4, items4,
+                check_loss=wire == "f32")
+            prefix = flatten.prefix_length(cdfl4.layout, fraction)
+            lossr = [round(v, 4) for v in metrics["loss"].mean(dim=1).tolist()]
+            print(f"path cdfa_m K=4 fraction={fraction} prefix={prefix} "
+                  f"wire={wire} rounds={rounds} loss/round={lossr} "
+                  f"launches={counts} card-vs-cpu max|param diff|="
+                  f"{diff:.3e} card ms/round={round_ms:.3f}", flush=True)
 
     def profiled(tr, state, data_dev, gen_idx, **kw):
         """One round under the profiler: (state, wall ms, busy by kernel,
@@ -656,6 +891,50 @@ def main() -> None:
           f"B1_ms={b1_ms:.4f} B1_share_of_wall={b1_ms / prof_ms:.4f} "
           f"device_events={n_dev} top="
           f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+    fleet256_ms = round_ms
+    fleet256 = runner(tr, state, data_dev, gen_idx)
+
+    # -- 6d. cdfa_m on the K=256 ring: B1 on an unaligned prefix ----------
+    # fraction 0.75: the prefix b1, b2, w1 (23,560 columns), bf16 wire
+    fed = FedConfig(num_nodes=256, topology="ring", gamma=0.5,
+                    local_steps=10, wire_dtype="bf16", algorithm="cdfa_m",
+                    cdfa_fraction=0.75)
+    reset_counts()
+    tr = cdfl.build_trainer(loss, fed, train)
+    state = tr.init(p0, items256)
+    gen_idx = torch.Generator().manual_seed(15)
+    state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = tr.run_rounds(state, data_dev, 5, generator=gen_idx)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0) / 5
+    counts = read_counts()
+    expect_counts("cdfa_m K=256", counts, {
+        "flat_mix": 6, "flat_consensus": 0, "cnd_bitmaps": 1,
+        "cnd_popcount": 1, **dense_only})
+    add(counts)
+    if not torch.isfinite(metrics["loss"]).all():
+        fail("cdfa_m K=256: non-finite loss")
+    print(f"path cdfa_m K=256 ring fraction=0.75 prefix="
+          f"{flatten.prefix_length(state.layout, 0.75)} wire=bf16 "
+          f"ms/round={round_ms:.3f} (cdfl fleet K=256 {fleet256_ms:.3f}) "
+          f"loss={metrics['loss'].mean().item():.4f} launches={counts}",
+          flush=True)
+    state, prof_ms, busy, n_dev = profiled(tr, state, data_dev, gen_idx)
+    busy_ms = sum(busy.values())
+    b1_ms = sum(v for n, v in busy.items()
+                if "mix_kernel<" in n and ", true," in n
+                and "gather" not in n)
+    print(f"profile cdfa_m K=256 round: wall_ms={prof_ms:.3f} device_busy_ms"
+          f"={busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} B1_ms="
+          f"{b1_ms:.4f} device_events={n_dev}", flush=True)
+    a_ms, b_ms, a_all, b_all = paired_ms(
+        fleet256, runner(tr, state, data_dev, gen_idx), blocks=2, rounds=3)
+    print(f"paired K=256 ring ms/round (turns cdfl, cdfa_m, cdfa_m, cdfl, "
+          f"twice): cdfl={a_ms:.3f} cdfa_m={b_ms:.3f} extra="
+          f"{b_ms - a_ms:.3f} turns cdfl={[round(t, 3) for t in a_all]} "
+          f"cdfa_m={[round(t, 3) for t in b_all]}", flush=True)
     del data_dev
 
     # -- 6a. the twin of examples/mobility_platoon.py: K=8, dense ---------
@@ -787,6 +1066,72 @@ def main() -> None:
             print(f"check {fmt} K=64 wire=bf16 2 rounds card-vs-cpu "
                   f"max|param diff|={(outs[0] - outs[1]).abs().max():.3e} "
                   f"(reported, not gated)", flush=True)
+
+    # -- 6e. dpsgd on the K=1024 Manhattan fleet, sparse and hierarchical --
+    # per-step gossip of the f32 buffer (dpsgd has no codec) on the fleet's
+    # own stacks from 2b, handed over as explicit per-round stacks: the
+    # CND weights of those stacks, not dpsgd's uniform ones, so the
+    # hierarchical stack is not built a second time. 1 warm-up and 5
+    # timed rounds; the CPU check at K=64 builds dpsgd's own stacks.
+    data_dev = {name: torch.as_tensor(v, device=dev)
+                for name, v in data1024.items()}
+    for fmt, (_, etas, gammas) in fleet.items():
+        fed = dataclasses.replace(fleet_feds[fmt], algorithm="dpsgd",
+                                  wire_dtype="f32")
+        tr = cdfl.build_trainer(loss, fed, train)
+        gen_idx = torch.Generator().manual_seed(16)
+
+        def rounds(state, lo, hi):
+            return tr.run_rounds(state, data_dev, hi - lo, generator=gen_idx,
+                                 eta_stack=round_slice(etas, slice(lo, hi)),
+                                 gamma_stack=gammas[lo:hi])
+
+        reset_counts()
+        state = tr.init(p0, items1024)
+        state, _ = rounds(state, 0, 1)                  # warm-up round
+        times = []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = rounds(state, 1 + 3 * rep, 4 + 3 * rep)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0) / 3)
+        counts = read_counts()
+        steps = 10 * fed.local_steps
+        expect = {"flat_mix": 0, "flat_consensus": 0, "cnd_bitmaps": 1,
+                  "cnd_popcount": 1, "sparse_mix": steps, "cluster_mix": 0,
+                  "robust_agg": 0, "consensus_mix": 0}
+        if fmt == "hierarchical":
+            # B6 then B5 every step, never a re-merge burst
+            expect["cluster_mix"] = steps
+        expect_counts(f"dpsgd fleet {fmt} K={FLEET_K}", counts, expect)
+        add(counts)
+        if not torch.isfinite(metrics["loss"]).all():
+            fail(f"dpsgd fleet {fmt}: non-finite loss")
+        print(f"path dpsgd fleet {fmt} K={FLEET_K} wire=f32 Manhattan "
+              f"ms/round median={statistics.median(times):.3f} repeats="
+              f"{[round(t, 3) for t in times]} loss/round="
+              f"{[round(v, 4) for v in metrics['loss'][:, 0].tolist()]} "
+              f"launches={counts}", flush=True)
+        # against the cdfl fleet round (bf16 wire, one exchange a round),
+        # in turns on the same stacks: rounds 10-13 and 1-4
+        cdfl_tr = fleet[fmt][0]
+        cdfl_run = runner(cdfl_tr, cdfl_tr.init(p0, items1024), data_dev,
+                          torch.Generator().manual_seed(19), (etas, gammas))
+        cdfl_run(1)                                     # warm-up round
+        a_ms, b_ms, a_all, b_all = paired_ms(
+            cdfl_run, runner(tr, state, data_dev, gen_idx, (etas, gammas)),
+            blocks=1, rounds=2)
+        print(f"paired {fmt} K={FLEET_K} ms/round (turns cdfl, dpsgd, "
+              f"dpsgd, cdfl): cdfl={a_ms:.3f} dpsgd={b_ms:.3f} extra="
+              f"{b_ms - a_ms:.3f} turns cdfl={[round(t, 3) for t in a_all]}"
+              f" dpsgd={[round(t, 3) for t in b_all]}", flush=True)
+        small = dataclasses.replace(fed, num_nodes=64)
+        _, _, _, diff, _ = drive(small, 3, 17, None, data64, items64,
+                                 check_loss=False)
+        print(f"check dpsgd {fmt} K=64 wire=f32 3 rounds card-vs-cpu "
+              f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+    del data_dev
 
     # -- 7. faults and robust mixing --------------------------------------
     def check_telemetry(label, metrics, plan):
@@ -970,11 +1315,103 @@ def main() -> None:
         print(f"check faulted {fmt} K=64 wire=f32 3 rounds card-vs-cpu "
               f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
 
-    # -- 8. kernel table --------------------------------------------------
+    # -- 8. the paper's Tables 1-4, MLP (benchmarks/paper_tables.py:24-140)
+    # K=4 ring; NODE_RATIOS through inject_duplicates, synthetic MNIST at
+    # noise 2.5, 320 items a station, a 320-item test set from seed 99;
+    # the MLP config's lr 1e-4, batch 32, betas and eps; 10 local steps;
+    # 60 rounds with per-round test accuracy. cdfl trains on the CND-
+    # deduplicated (ragged) nodes through n_items; its sketches, like
+    # every algorithm's, come from the raw data. The ranking is reported,
+    # not gated. The card is checked against the CPU over the first 3
+    # rounds (the run is two segments, 3 + 57 rounds).
+    from repro_torch.data import pipeline, redundancy
+    cfg = MLP_CONFIG
+    raw = [redundancy.inject_duplicates(
+        synthetic.synthetic_mnist(seed=i, n=cfg.train_per_node,
+                                  noise=TABLE_NOISE), TABLE_RATIOS[i], seed=i)
+        for i in range(4)]
+    test_set = synthetic.synthetic_mnist(seed=99, n=cfg.test_per_node * 4,
+                                         noise=TABLE_NOISE)
+    raw_items = pipeline.FederatedBatcher(raw, cfg.batch_size,
+                                          10).node_items()
+    table_train = TrainConfig(learning_rate=cfg.learning_rate,
+                              batch_size=cfg.batch_size, beta1=cfg.beta1,
+                              beta2=cfg.beta2, eps=cfg.eps)
+
+    def table_eval(device):
+        x = torch.as_tensor(test_set.x, device=device).expand(
+            (4,) + test_set.x.shape)
+        y = torch.as_tensor(test_set.y, device=device).expand(
+            (4,) + test_set.y.shape)
+        return lambda params: simple.accuracy(simple.mlp_forward(params, x),
+                                              y)
+
+    def pad_cycle(a, n):
+        return np.concatenate([a] * int(np.ceil(n / a.shape[0])))[:n]
+
+    table = {}
+    for alg in TABLE_ALGS:
+        nodes = ([redundancy.cnd_dedup(d) for d in raw] if alg == "cdfl"
+                 else raw)
+        n_per = np.asarray([d.x.shape[0] for d in nodes])
+        n_max = int(n_per.max())
+        data = {"x": np.stack([pad_cycle(d.x, n_max) for d in nodes]),
+                "y": np.stack([pad_cycle(d.y, n_max) for d in nodes])}
+        n_items = None if (n_per == n_max).all() else n_per
+        fed = FedConfig(num_nodes=4, local_steps=10, algorithm=alg)
+        tr = cdfl.build_trainer(loss, fed, table_train,
+                                eval_fn=table_eval(dev))
+        gen_idx = torch.Generator().manual_seed(0)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state3, m3 = tr.run_rounds(tr.init(p0, raw_items), data, 3,
+                                   generator=gen_idx, n_items=n_items)
+        state, m57 = tr.run_rounds(state3, data, TABLE_ROUNDS - 3,
+                                   generator=gen_idx, n_items=n_items)
+        torch.cuda.synchronize()
+        round_ms = 1e3 * (time.perf_counter() - t0) / TABLE_ROUNDS
+        counts = read_counts()
+        mixes = TABLE_ROUNDS * (10 if alg == "dpsgd" else 1)
+        expect_counts(f"table {alg}", counts, {
+            "flat_mix": mixes, "flat_consensus": 0, "cnd_bitmaps": 1,
+            "cnd_popcount": 1, **dense_only})
+        add(counts)
+        tr_cpu = cdfl.build_trainer(loss, fed, table_train, device="cpu",
+                                    eval_fn=table_eval("cpu"))
+        cpu3, cpu_m3 = tr_cpu.run_rounds(
+            tr_cpu.init(p0, raw_items), data, 3,
+            generator=torch.Generator().manual_seed(0), n_items=n_items)
+        diff = (state3.buf.cpu() - cpu3.buf).abs().max().item()
+        if not diff <= 1e-4:
+            fail(f"table {alg}: card params after 3 rounds differ from the "
+                 f"CPU run by {diff:.3e} > 1e-4")
+        acc = torch.cat([m3["eval"], m57["eval"]]).cpu().numpy()   # (R, K)
+        hit = acc >= 0.8
+        to_80 = np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
+                         TABLE_ROUNDS)
+        table[alg] = to_80.tolist()
+        eval_diff = np.abs(acc[:3] - cpu_m3["eval"].numpy()).max()
+        curve = [round(float(acc[r - 1].mean()), 4) for r in (10, 20, 30, 60)]
+        print(f"table {alg} rounds_to_80/node={to_80.tolist()} (reached="
+              f"{hit.any(axis=0).tolist()}; {TABLE_ROUNDS} where never "
+              f"reached) final_acc/node="
+              f"{[round(float(a), 4) for a in acc[-1]]} mean acc at rounds "
+              f"10/20/30/60={curve} ms/round={round_ms:.3f} n_items="
+              f"{None if n_items is None else n_items.tolist()} launches="
+              f"{counts} card-vs-cpu 3 rounds max|param diff|={diff:.3e} "
+              f"max|eval diff|={eval_diff:.4f}", flush=True)
+    ranking = sorted((round(float(np.mean(v)), 2), a) for a, v in table.items())
+    print(f"table ranking (mean rounds to 80% over the 4 stations, lower is "
+          f"faster; reported, not gated): {ranking}", flush=True)
+
+    # -- 9. kernel table --------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",
                             "src/repro/kernels/consensus_mix.py:77"),
                "flat_consensus": ("src/repro_torch/csrc/consensus_mix.cu",
                                   "src/repro/kernels/consensus_mix.py:109"),
+               "consensus_mix": ("src/repro_torch/csrc/consensus_mix.cu",
+                                 "src/repro/kernels/consensus_mix.py:133"),
                "cnd_bitmaps": ("src/repro_torch/csrc/cnd_sketch.cu",
                                "src/repro/kernels/cnd_sketch.py:77"),
                "cnd_popcount": ("src/repro_torch/csrc/cnd_sketch.cu",

@@ -5,6 +5,9 @@ see the same data and initialization through one trainer.
   C-DFL      — CND-weighted consensus (the paper's method).
   CFA        — consensus FedAvg (Savazzi et al. [20]): datasize weights,
                redundancy-blind.
+  C-DFA      — consensus-driven FA (Barbieri et al. [21]): uniform weights
+               on a fraction M of the layers (the paper compares M=100%).
+  CDFA       — D-PSGD (Lian et al. [7]): gossip average every SGD step.
   FedAvg     — centralized reference: a server average every round.
   Metropolis — Metropolis-Hastings weights (doubly stochastic).
 """
@@ -25,11 +28,23 @@ def _register(name: str):
 
     algorithms.register(name, AlgorithmSpec(
         name=name, mixing=topology.ALGORITHM_MIXING[name],
-        uses_transport=name != "fedavg", make=make))
+        uses_transport=name not in ("fedavg", "dpsgd"), make=make))
     return make
 
 
 cdfl = _register("cdfl")
 cfa = _register("cfa")
+dpsgd = _register("dpsgd")
 fedavg = _register("fedavg")
 metropolis = _register("metropolis")
+
+
+def cdfa_m(loss_fn, fed: FedConfig, train: TrainConfig,
+           fraction: float = 1.0, **kw) -> Trainer:
+    f = dataclasses.replace(fed, algorithm="cdfa_m", cdfa_fraction=fraction)
+    return build_trainer(loss_fn, f, train, **kw)
+
+
+algorithms.register("cdfa_m", AlgorithmSpec(
+    name="cdfa_m", mixing=topology.ALGORITHM_MIXING["cdfa_m"],
+    uses_transport=True, make=cdfa_m))

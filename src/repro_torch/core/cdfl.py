@@ -3,12 +3,17 @@
 One federated round =
   1. the eq. 5 consensus exchange with CND-derived weights (eqs. 5-7) on
      the flat ``(K, P)`` buffer, through the transport (cdfl, cfa,
-     metropolis) or the fedavg server average (kernel B2). The weights
-     come in three formats (``FedConfig.mixing_format``): dense ``(K, K)``
-     eta (kernel B1), sparse top-D :class:`topology.SparseEta` (kernel B5),
-     or two-tier :class:`hierarchy.mixing.HierEta` (kernels B6 and B5);
+     metropolis; cdfa_m sends only a column prefix, its first layers) or
+     the fedavg server average (kernel B2). The weights come in three
+     formats (``FedConfig.mixing_format``): dense ``(K, K)`` eta (kernel
+     B1), sparse top-D :class:`topology.SparseEta` (kernel B5), or
+     two-tier :class:`hierarchy.mixing.HierEta` (kernels B6 and B5);
   2. ``local_steps`` flat-Adam updates (eq. 8) on minibatches gathered on
      the device from the resident datasets.
+
+dpsgd has no once-per-round exchange: it gossips the f32 buffer before
+every local step instead, in the config's format (B1, B5, or B6 then B5
+without a re-merge burst).
 
 Params live in the flat buffer for the whole run: the forward and
 backward read views of it, all K nodes at once, and the gradient of the
@@ -146,17 +151,30 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
     ``device=None`` runs on the card; pass ``device="cpu"`` for the plain
     PyTorch path."""
     dev = resolve_device(device)
-    _refuse_unported(fed)
     registry.ensure_plugins()
     spec = registry.algorithms.get(fed.algorithm)
+    if not spec.uses_transport and (fed.transport, fed.wire_dtype,
+                                    fed.staleness) != ("dense", "f32", 0):
+        # fedavg averages at a server and dpsgd gossips the f32 buffer
+        # every step: reject transport settings rather than silently
+        # running something else than what was asked for
+        raise ValueError(
+            f"{fed.algorithm} does not use the consensus transport "
+            f"(fedavg: server average; dpsgd: per-step f32 gossip) "
+            f"— got transport={fed.transport}/{fed.wire_dtype}/"
+            f"staleness={fed.staleness}")
+    _refuse_unported(fed)
     k = fed.num_nodes
-    topo = "full" if fed.algorithm == "fedavg" else fed.topology
+    fedavg = fed.algorithm == "fedavg"
+    dpsgd = fed.algorithm == "dpsgd"
+    cdfa_m = fed.algorithm == "cdfa_m"
+    topo = "full" if fedavg else fed.topology
     adj_np = topology.adjacency(topo, k)
     adj = torch.as_tensor(adj_np, device=dev)
     mob = fed.mobility
     if mob is not None and mob.kind == "static":
         mob = None
-    if mob is not None and fed.algorithm == "fedavg":
+    if mob is not None and fedavg:
         # a server average has no inter-vehicle links to churn
         raise ValueError("fedavg (centralized server average) does not "
                          "model a vehicular topology; mobility requires "
@@ -167,21 +185,12 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
     hier_cfg = ((fed.hierarchy or HierarchyConfig())
                 if fed.mixing_format == "hierarchical" else None)
     hier_rule = (hier_cfg.intra_rule or spec.mixing) if hier_cfg else None
-    if spec.uses_transport:
-        transport = transport_lib.make_transport(fed)
-    else:
-        # fedavg averages at a server: reject transport settings rather
-        # than silently running something else than what was asked for
-        if (fed.transport, fed.wire_dtype, fed.staleness) != ("dense",
-                                                               "f32", 0):
-            raise ValueError(
-                f"{fed.algorithm} does not use the consensus transport "
-                f"(server average) — got transport={fed.transport}/"
-                f"{fed.wire_dtype}/staleness={fed.staleness}")
-        transport = None
+    transport = (transport_lib.make_transport(fed) if spec.uses_transport
+                 else None)
     # Fault injection and robust mixing act on the once-per-round
-    # full-buffer wire exchange, which the fedavg server average lacks.
-    fault_capable = spec.uses_transport
+    # full-buffer wire exchange, which fedavg (server average), dpsgd
+    # (per-step gossip) and cdfa_m (prefix-only wire) lack.
+    fault_capable = spec.uses_transport and not cdfa_m
     if fed.faults is not None and fed.faults.active and not fault_capable:
         raise ValueError(
             f"{fed.algorithm} has no full-buffer wire exchange to "
@@ -225,7 +234,12 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             raise ValueError(f"node_items must be (K={k}, n, f), got "
                              f"{tuple(items.shape)}")
         ratios, sizes = _node_sketches(items, fed)
-        tstate = transport.init_state(buf) if transport else ()
+        tstate = ()
+        if transport is not None:
+            # cdfa_m's wire carries only the leaf prefix
+            tstate = transport.init_state(
+                buf[:, :flatten.prefix_length(layout, fed.cdfa_fraction)]
+                if cdfa_m else buf)
         # a round-0 straggler replays the init broadcast
         fstate = buf if has_straggle else ()
         return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate,
@@ -348,15 +362,22 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             raise ValueError(f"gamma stack shape {tuple(gammas.shape)} != "
                              f"{(num_rounds,)}")
 
-    def mix_buf(buf, sizes, eta, gamma, tstate, rnd, sent=None):
+    def mix_buf(buf, sizes, eta, gamma, layout, tstate, rnd, sent=None):
         """The round's exchange. ``sent`` (fault injection) overrides the
         per-node wire payloads; ``None`` means every node broadcasts its
         clean buffer."""
-        if transport is None:
-            # fedavg: server average with weights E_i / sum E
+        if fedavg:
+            # server average with weights E_i / sum E
             w = sizes / sizes.sum()
             a = w[None, :].expand(k, k).contiguous()
             return flatten.apply_matrix_flat(buf, a), tstate
+        if cdfa_m:
+            # C-DFA(M): only the leaf-prefix columns travel the wire (with
+            # the codec); the strided prefix is copied once for the kernel
+            prefix = flatten.prefix_length(layout, fed.cdfa_fraction)
+            head, tstate = transport.exchange(buf[:, :prefix].contiguous(),
+                                              eta, gamma, tstate, rnd)
+            return torch.cat([head, buf[:, prefix:]], dim=1), tstate
         if hier_cfg is not None:
             # two-tier cluster consensus: the intra tier's neighbor terms
             # read the (possibly fault-overridden) wire payloads, its self
@@ -378,11 +399,25 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             return robust_fn(buf, payload, eta, gamma), tstate
         return transport.exchange(buf, eta, gamma, tstate, rnd, sent=sent)
 
-    def local_steps(buf, opt, layout, data, idx_r):
-        """``local_steps`` Adam steps of every node; idx_r (K, S, B)."""
+    def gossip(buf, eta, gamma):
+        """dpsgd's per-step mix of the f32 buffer in the config's format.
+        No re-merge burst per step: dpsgd already mixes ``local_steps``
+        times a round, which is the catch-up."""
+        if hier_cfg is not None:
+            return hier_lib.hier_mix_flat(buf, eta, gamma, burst_passes=0)
+        if sparse_fmt:
+            return flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma)
+        return flatten.mix_flat(buf, eta, gamma)
+
+    def local_steps(buf, opt, layout, data, idx_r, eta=None, gamma=None):
+        """``local_steps`` Adam steps of every node; idx_r (K, S, B). For
+        dpsgd (``eta`` given) each step first gossips the buffer, and the
+        loss is the mean over nodes and steps, broadcast to every node."""
         rows = torch.arange(k, device=dev)[:, None]
         loss_sum = torch.zeros(k, dtype=torch.float32, device=dev)
         for s in range(idx_r.shape[1]):
+            if eta is not None:
+                buf = gossip(buf, eta, gamma)
             sel = idx_r[:, s]
             batch = {name: arr[rows, sel] for name, arr in data.items()}
             p = buf.detach().requires_grad_(True)
@@ -392,16 +427,26 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             with torch.no_grad():
                 buf, opt = fopt.update(grad, opt, buf)
             loss_sum += losses.detach()
-        return buf, opt, loss_sum / idx_r.shape[1]
+        loss = loss_sum / idx_r.shape[1]
+        if eta is not None:
+            loss = loss.mean().expand(k)
+        return buf, opt, loss
 
     def run_rounds(state: FedState, data: dict, num_rounds: int,
                    idx=None, generator: Optional[torch.Generator] = None,
-                   eta_stack=None, gamma_stack=None):
+                   eta_stack=None, gamma_stack=None, n_items=None):
         """Run ``num_rounds`` rounds from ``state`` (which is left as it
         was). ``data``: node-stacked datasets, leaves (K, N, ...), moved
         to and kept on the device. ``idx``: (R, K, S, B) per-round batch
         indices; when omitted they are drawn from ``generator`` (default:
         a CPU generator seeded with ``train.seed + 1``).
+
+        ``n_items``: optional (K,) per-node valid item counts when the
+        datasets are padded to a common N (ragged nodes, e.g. after
+        :func:`repro_torch.data.redundancy.cnd_dedup`). Drawn indices are
+        then uniform over each node's own count, as the JAX package draws
+        them (a uniform ``u`` maps to ``min(floor(u * n_k), n_k - 1)``),
+        and explicit indices must lie below it.
 
         ``eta_stack``: explicit per-round weights overriding
         :func:`mixing_stack` (round r uses slice r): a dense (R, K, K)
@@ -418,17 +463,37 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 for name, v in data.items()}
         max_items = next(iter(data.values())).shape[1]
         shape = (num_rounds, k, fed.local_steps, train.batch_size)
+        if n_items is not None:
+            n_items = torch.as_tensor(n_items).to(torch.int64).cpu()
+            if (tuple(n_items.shape) != (k,) or int(n_items.min()) < 1
+                    or int(n_items.max()) > max_items):
+                raise ValueError(
+                    f"n_items must be (K={k},) counts in [1, {max_items}], "
+                    f"got {n_items.tolist()}")
         if idx is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(train.seed + 1)
-            idx = torch.randint(0, max_items, shape, generator=generator,
-                                device=generator.device)
+            if n_items is None:
+                idx = torch.randint(0, max_items, shape, generator=generator,
+                                    device=generator.device)
+            else:
+                u = torch.rand(shape, generator=generator,
+                               device=generator.device)
+                n = n_items.to(u.device)[None, :, None, None]
+                idx = torch.minimum((u * n).to(torch.int64), n - 1)
         idx = torch.as_tensor(idx)
         if tuple(idx.shape) != shape:
             raise ValueError(f"batch index stack {tuple(idx.shape)} != "
                              f"{shape}")
         if int(idx.min()) < 0 or int(idx.max()) >= max_items:
             raise ValueError(f"batch indices must lie in [0, {max_items})")
+        if n_items is not None:
+            over = idx.cpu() >= n_items[None, :, None, None]
+            if bool(over.any()):
+                node = int(over.nonzero()[0, 1])
+                raise ValueError(
+                    f"batch indices of node {node} must lie in "
+                    f"[0, {int(n_items[node])}), its item count")
         idx = idx.to(device=dev, dtype=torch.int64)
         if eta_stack is None:
             etas, gammas = mixing_stack(state, num_rounds, start=state.round)
@@ -484,10 +549,17 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 sent, eta_r, quarantined = faults_lib.wire_guard(
                     sent, buf, eta_r, fed.faults.guard_threshold)
             entry_buf, entry_opt = buf, opt
-            buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r], tstate,
-                                  state.round + r, sent=sent)
-            buf, opt, loss = local_steps(buf, opt, state.layout, data,
-                                         idx[r])
+            if dpsgd:
+                # no once-per-round exchange: the gossip runs inside the
+                # step loop (dpsgd takes no faults, so sent is None)
+                buf, opt, loss = local_steps(buf, opt, state.layout, data,
+                                             idx[r], eta_r, gammas[r])
+            else:
+                buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r],
+                                      state.layout, tstate, state.round + r,
+                                      sent=sent)
+                buf, opt, loss = local_steps(buf, opt, state.layout, data,
+                                             idx[r])
             series["loss"].append(loss)
             series["disagreement"].append(
                 flatten.disagreement_flat(buf, state.layout.total))

@@ -157,6 +157,23 @@ def cluster_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                            gamma_node.to(buf.dtype))
 
 
+def partial_mix_flat(buf: torch.Tensor, eta, gamma,
+                     prefix: int) -> torch.Tensor:
+    """Eq. (5) on the first ``prefix`` buffer columns only (C-DFA(M):
+    federated optimization on Q <= N layers); the other columns pass
+    through. ``eta`` is dense (K, K) (kernel B1) or a
+    ``topology.SparseEta`` (kernel B5, duck-typed on ``.idx``). The column
+    prefix of a (K, P) buffer is a strided view, so it is copied once
+    (K x prefix) for the kernel, which takes contiguous rows of any
+    width."""
+    head = buf[:, :prefix].contiguous()
+    if hasattr(eta, "idx"):
+        head = sparse_mix_flat(head, eta.idx, eta.val, gamma)
+    else:
+        head = mix_flat(head, eta, gamma)
+    return torch.cat([head, buf[:, prefix:]], dim=1)
+
+
 def disagreement_flat(buf: torch.Tensor, total: int) -> torch.Tensor:
     """Mean squared node deviation from the node mean. ``total`` is the
     unpadded per-node element count (the zero padding adds nothing)."""

@@ -8,8 +8,27 @@ E_k' distinct items, E_k'/E_k = distinct_ratio.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.core import sketch
 from repro_torch.data.synthetic import Dataset
+
+
+def cnd_dedup(ds: Dataset, num_hashes: int = 3, m: int = 8192) -> Dataset:
+    """CND-based redundant-data filtering (paper Sec. 4.2: 'base stations
+    can filter redundant data and thus speed up local updating').
+
+    The CND bitmap doubles as a Bloom filter: an item whose ``num_hashes``
+    bucket bits are all already set is (w.h.p.) a duplicate and is
+    dropped. The filter is evaluated exactly through the hash triples
+    (collision probability ~ (n/m)^H, negligible at the paper's m); the
+    first copy of each triple is kept, in the original order. Host work on
+    the CPU."""
+    idx = sketch.hash_items(torch.as_tensor(np.asarray(ds.features)),
+                            num_hashes, m).numpy()       # (H, n)
+    _, first = np.unique(idx.T, axis=0, return_index=True)
+    keep = np.sort(first)
+    return Dataset(x=ds.x[keep], y=ds.y[keep], features=ds.features[keep])
 
 
 def inject_duplicates(ds: Dataset, distinct_ratio: float,

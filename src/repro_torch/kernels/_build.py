@@ -33,6 +33,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "repro_flat_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "repro_flat_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
         "repro_flat_consensus": [_P, _P, _P, _I, _I, _P],
+        "repro_consensus_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_consensus_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "cnd_sketch": {
         "repro_cnd_bitmaps": [_P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,6 +1,6 @@
-"""Wrappers of the B1 ``flat_mix`` and B2 ``flat_consensus`` CUDA kernels
-(``csrc/consensus_mix.cu``), which replace the Pallas kernels of
-``src/repro/kernels/consensus_mix.py``.
+"""Wrappers of the B1 ``flat_mix``, B2 ``flat_consensus`` and B8
+``consensus_mix`` CUDA kernels (``csrc/consensus_mix.cu``), which replace
+the Pallas kernels of ``src/repro/kernels/consensus_mix.py``.
 
 These wrappers take CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate the output with ``torch.empty``, launch on
@@ -94,3 +94,50 @@ def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
 
 
 flat_consensus.launches = 0
+
+
+_MIX_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# eta and gamma staged in the 48 KB of dynamic shared memory a launch gets
+# without an opt-in
+_MAX_NEIGHBORS = 48 * 1024 // 4 - 1
+
+
+def consensus_mix(w: torch.Tensor, neighbors: torch.Tensor, eta: torch.Tensor,
+                  gamma: torch.Tensor) -> torch.Tensor:
+    """``OUT = W + gamma * sum_i eta_i (NB_i - W)``, accumulated in f32 and
+    returned in ``w``'s dtype.
+
+    w (rows, L) and neighbors (N, rows, L), both float32 or both bfloat16;
+    eta (N,) f32; gamma a one-element f32 tensor. eta and gamma are read
+    by the kernel on the device (no host synchronization). Any N >= 1 and
+    any rows."""
+    dev = _check_cuda(w, neighbors, eta, gamma)
+    _require(w.dim() == 2, f"w must be (rows, L), got {tuple(w.shape)}")
+    _require(neighbors.dim() == 3 and neighbors.shape[1:] == w.shape,
+             f"neighbors {tuple(neighbors.shape)} must be (N, "
+             f"{w.shape[0]}, {w.shape[1]})")
+    n = neighbors.shape[0]
+    _require(1 <= n <= _MAX_NEIGHBORS,
+             f"neighbor count {n} outside [1, {_MAX_NEIGHBORS}]")
+    _require(eta.shape == (n,), f"eta {tuple(eta.shape)} != ({n},)")
+    _require(gamma.numel() == 1, "gamma must hold one value")
+    _require(eta.dtype == torch.float32 and gamma.dtype == torch.float32,
+             "eta and gamma must be float32")
+    _require(w.dtype in _MIX_SUFFIX,
+             f"w dtype {w.dtype} not supported (float32 or bfloat16)")
+    _require(neighbors.dtype == w.dtype,
+             f"neighbors dtype {neighbors.dtype} != w dtype {w.dtype}")
+    e = w.numel()
+    _require(1 <= e < 2 ** 31, f"w holds {e} elements, outside [1, 2**31)")
+    fn = f"repro_consensus_mix_{_MIX_SUFFIX[w.dtype]}"
+    out = torch.empty_like(w)
+    lib = _build.library(_LIB)
+    code = getattr(lib, fn)(w.data_ptr(), neighbors.data_ptr(),
+                            eta.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+                            n, e, _stream(dev))
+    consensus_mix.launches += 1
+    _build.check(_LIB, fn, code)
+    return out
+
+
+consensus_mix.launches = 0

@@ -1,4 +1,4 @@
-"""Public entry points of the B1-B7 kernels.
+"""Public entry points of the B1-B8 kernels.
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
@@ -33,6 +33,45 @@ def flat_mix(eta, master, wire, gamma) -> torch.Tensor:
         g = torch.as_tensor(gamma, dtype=torch.float32, device=master.device)
         return _cm.flat_mix(eta, master, wire, g.reshape(1))
     return ref.flat_mix(eta, master, wire, gamma)
+
+
+def consensus_mix(w, neighbors, eta, gamma) -> torch.Tensor:
+    """One node's fused mix with its N neighbor copies (B8):
+    ``W + gamma * sum_i eta_i (NB_i - W)`` for w (rows, L) and neighbors
+    (N, rows, L), accumulated in f32 and returned in ``w``'s dtype. The
+    neighbors are promoted to ``w``'s dtype."""
+    if _on_cuda(w):
+        f32 = dict(dtype=torch.float32, device=w.device)
+        return _cm.consensus_mix(
+            w.contiguous(), neighbors.to(w.dtype).contiguous(),
+            torch.as_tensor(eta, **f32).contiguous(),
+            torch.as_tensor(gamma, **f32).reshape(1))
+    return ref.consensus_mix(w, neighbors, eta, gamma)
+
+
+def consensus_mix_pytree(params: dict, neighbor_params: dict, eta,
+                         gamma) -> dict:
+    """Eq. 5 for one node's whole parameter dict at once: ``params`` leaves
+    (...), ``neighbor_params`` leaves (N, ...). Self and neighbors are
+    packed into ONE flat (N+1, P) buffer (self in row 0, each leaf at the
+    promoted dtype of its pair) and mixed by one B1 call with the weights
+    ``[0, eta]`` in row 0; row 0 comes back with every leaf in its own
+    dtype."""
+    from repro_torch.core import flatten
+
+    stacked = {}
+    for name, w in params.items():
+        nb = neighbor_params[name]
+        dt = torch.promote_types(w.dtype, nb.dtype)
+        stacked[name] = torch.cat([w[None].to(dt), nb.to(dt)])
+    buf, layout = flatten.flatten(stacked)
+    n = buf.shape[0] - 1
+    eta_full = torch.zeros((n + 1, n + 1), dtype=torch.float32,
+                           device=buf.device)
+    eta_full[0, 1:] = torch.as_tensor(eta, dtype=torch.float32,
+                                      device=buf.device)
+    mixed = flatten.unflatten(flatten.mix_flat(buf, eta_full, gamma), layout)
+    return {name: mixed[name][0].to(w.dtype) for name, w in params.items()}
 
 
 def flat_consensus(matrix, buf) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the B1-B7 kernels: the CPU path of
+"""Plain PyTorch versions of the B1-B8 kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
 against on the card. Device-agnostic tensor code."""
 from __future__ import annotations
@@ -23,6 +23,18 @@ def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
 def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
     """``OUT = A @ BUF`` in f32."""
     return matrix.float() @ buf.float()
+
+
+def consensus_mix(w: torch.Tensor, neighbors: torch.Tensor, eta,
+                  gamma) -> torch.Tensor:
+    """``OUT = W + gamma * sum_i eta_i (NB_i - W)`` in f32, cast to ``w``'s
+    dtype: w (rows, L), neighbors (N, rows, L), eta (N,)."""
+    w32 = w.float()
+    delta = neighbors.float() - w32[None]
+    eta32 = torch.as_tensor(eta, dtype=torch.float32, device=w.device)
+    acc = torch.einsum("n,nrl->rl", eta32, delta)
+    g = torch.as_tensor(gamma, dtype=torch.float32, device=w.device)
+    return (w32 + g.reshape(()) * acc).to(w.dtype)
 
 
 def sparse_neighbor_sum(idx: torch.Tensor, val: torch.Tensor,

@@ -90,8 +90,6 @@ algorithms = Registry("algorithm")
 
 # (config field, value) -> the ROADMAP item that ports it
 NOT_PORTED = {
-    ("algorithm", "dpsgd"): "ROADMAP queue A item 14 (dpsgd and cdfa_m)",
-    ("algorithm", "cdfa_m"): "ROADMAP queue A item 14 (dpsgd and cdfa_m)",
     ("transport", "ring"): "ROADMAP queue A item 20 (ring and gossip "
                            "transports)",
     ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
