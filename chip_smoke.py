@@ -32,8 +32,16 @@ and the paper MLP's (187, 128) rows with N=2), B8 driven through
 23,560), dpsgd on the K=1024 fleet's stacks (sparse and hierarchical),
 each checked against the CPU, and the paper's Tables 1-4 MLP comparison
 of cdfl, cfa, cdfa_m and dpsgd over 60 rounds (rounds to 80% test
-accuracy per station, reported, not gated); the kernel table as one JSON
-line; and the verdict as the last line. Every path phase zeroes the
+accuracy per station, reported, not gated); then LLM serving: B9 held
+against its plain version (tests/test_kernels.py's sweep, ragged
+lengths, rows with no live key, and the path's shapes up to qwen3's
+prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4 requests of
+512 prompt tokens through the prefill step, the same prompts teacher-
+forced through the serve step, 16 generated tokens; prefill logits held
+against the decode's) and in f32 (128 prompt tokens, with and without a
+64-token window), ``serve.main`` at smoke width on the card against the
+CPU (and a GQA variant), and one decode step under the profiler; the
+kernel table as one JSON line; and the verdict as the last line. Every path phase zeroes the
 kernels' launch counts before it runs and checks them after. Exits
 non-zero, with no verdict, when CUDA is absent or any check fails.
 """
@@ -45,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +67,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
+BF16_OPS_PER_S = 989e12       # dense tensor-core bf16
 
 P = 23_936                    # the paper MLP's lane-padded buffer width
 FLEET_K = 1024                # the vehicular fleet phases
@@ -89,6 +99,13 @@ TABLE_ALGS = ["cdfl", "cfa", "cdfa_m", "dpsgd"]
 TABLE_RATIOS = [0.1, 0.2, 0.4, 0.8]
 TABLE_NOISE = 2.5
 TABLE_ROUNDS = 60
+# LLM serving: qwen3-1.7b at full width (src/repro/configs/qwen3_1_7b.py)
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_PARAMS = 2_031_739_904  # every leaf, q/k norms and final norm included
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
+F32_PROMPT, F32_WINDOW = 128, 64
+PREFILL_S = 2048              # qwen3's prefill shape for B9's timing row
+B9_TOL = 2e-5                 # f32 B9 against its plain version
 
 
 def fail(msg: str) -> None:
@@ -176,7 +193,7 @@ def node_arrays(nodes, local_steps: int = 10):
 def counted():
     """Every kernel wrapper with a launch count, by kernel name."""
     from repro_torch.kernels import cluster_mix, cnd_sketch, consensus_mix
-    from repro_torch.kernels import robust_agg, sparse_mix
+    from repro_torch.kernels import flash_attention, robust_agg, sparse_mix
     return {"flat_mix": consensus_mix.flat_mix,
             "flat_consensus": consensus_mix.flat_consensus,
             "consensus_mix": consensus_mix.consensus_mix,
@@ -184,7 +201,8 @@ def counted():
             "cnd_popcount": cnd_sketch.cnd_popcount,
             "sparse_mix": sparse_mix.sparse_mix,
             "cluster_mix": cluster_mix.cluster_mix,
-            "robust_agg": robust_agg.robust_agg}
+            "robust_agg": robust_agg.robust_agg,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def reset_counts() -> None:
@@ -222,6 +240,323 @@ def paired_ms(run_a, run_b, blocks: int, rounds: int) -> tuple:
             torch.cuda.synchronize()
             times[side].append(1e3 * (time.perf_counter() - t0) / rounds)
     return (statistics.median(times[0]), statistics.median(times[1])) + times
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs that attention with these masks computes, q at
+    position 0: the work B9 must do."""
+    qp = np.arange(sq)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros_like(qp)
+    hi = np.minimum(qp, sk - 1) if causal else np.full_like(qp, sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
+    """Kernel B9 and the qwen3-1.7b serving path: B9 against its plain
+    version over tests/test_kernels.py's sweep and the path's shapes; the
+    full-width model in bf16 (prefill, teacher-forced decode, generation)
+    and in f32 (prefill against decode, with and without a window); the
+    card against the port's CPU run of ``serve.main``; one decode step
+    under the profiler."""
+    from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    # -- 9a. B9 against its plain version ---------------------------------
+    # bf16: the plain version computed in f32 from the same bf16 inputs
+    # differs from B9 (which keeps p and the accumulator in f32) by the
+    # output's rounding: one bf16 ulp where |value| >= 2**-7, whose ulp
+    # (>= 6.1e-5) dwarfs the f32 summation-order noise; below that, one
+    # ulp plus B9_TOL, the f32 gate. The 2e-2 gate against the plain
+    # version in bf16 (which rounds p to bf16 first) stays as well.
+    def check_b9(b, sq, sk, h, kv, d, dtype, causal=True, window=None):
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+        torch.cuda.synchronize()
+        label = (f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} D={d} causal={causal}"
+                 f" window={window} {str(dtype)[6:]}")
+        diff = (out.float() - want).abs()
+        err = diff.max().item()
+        if dtype == torch.float32:
+            if not torch.allclose(out, want, rtol=B9_TOL, atol=B9_TOL):
+                fail(f"flash_attention {label} disagrees with its plain "
+                     f"version: max |diff| {err:.3e} > {B9_TOL}")
+            more = f"(rtol=atol={B9_TOL})"
+        else:
+            ulp = bf16_ulp(want)
+            big = want.abs() >= 2 ** -7
+            over = int((diff[big] > ulp[big]).sum().item())
+            if over or not bool((diff <= ulp + B9_TOL).all()):
+                fail(f"flash_attention {label}: {over} outputs with |value| "
+                     f">= 2**-7 differ from the f32 plain version by more "
+                     f"than one bf16 ulp; max |diff| {err:.3e}")
+            worst = (diff / ulp)[big].max().item() if big.any() else 0.0
+            plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+            err16 = (out.float() - plain.float()).abs().max().item()
+            if not torch.allclose(out.float(), plain.float(), rtol=2e-2,
+                                  atol=2e-2):
+                fail(f"flash_attention {label} differs from its bf16 plain "
+                     f"version by {err16:.3e} > 2e-2")
+            more = (f"(f32 plain: max {worst:.3f} ulp where |value| >= 2**-7;"
+                    f" bf16 plain: max |diff| {err16:.3e}, tol 2e-2)")
+        print(f"check flash_attention {label} max_abs_err={err:.3e} {more}",
+              flush=True)
+        row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        return q, k, v
+
+    for b, sq, sk, h, kv, d in ((1, 128, 128, 2, 2, 64),   # MHA
+                                (2, 256, 256, 4, 2, 64),   # GQA 2:1
+                                (1, 128, 128, 8, 1, 32),   # MQA
+                                (1, 512, 512, 2, 2, 128)):  # wide head
+        for dtype in (torch.float32, torch.bfloat16):
+            check_b9(b, sq, sk, h, kv, d, dtype)
+    for window in (32, 64, 128):
+        check_b9(1, 256, 256, 2, 2, 64, torch.float32, window=window)
+    check_b9(1, 128, 256, 2, 2, 64, torch.float32, causal=False)
+    for dtype in (torch.float32, torch.bfloat16):               # ragged
+        check_b9(1, 500, 500, 4, 2, 64, dtype)
+    # rows 79.. have no live key: the uniform average of v, as attend
+    check_b9(1, 128, 64, 2, 1, 32, torch.float32, window=16)
+    # the path's shapes: f32 prefill of 128 tokens (and its window run),
+    # the bf16 serving prefill of 512, then qwen3's prefill shape
+    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.float32)
+    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.float32,
+             window=F32_WINDOW)
+    for s_len in (SERVE_PROMPT, PREFILL_S):
+        q, k, v = check_b9(4, s_len, s_len, 16, 8, 128, torch.bfloat16)
+        kr = k.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
+        vr = v.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        pairs = 4 * 16 * live_pairs(s_len, s_len, True, None)
+        record("flash_attention", f"B=4 S={s_len} H=16 KV=8 D=128 bf16 "
+               f"causal", rows["flash_attention"]["max_abs_err"],
+               lambda: fa.flash_attention(q, k, v, causal=True),
+               lambda: ref.flash_attention(q, k, v, causal=True),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kr, vr, is_causal=True),
+               2 * (q.numel() * 2 + k.numel() * 2), 4 * 128 * pairs,
+               BF16_OPS_PER_S, slow=s_len == PREFILL_S,
+               extra={"live_pairs": pairs,
+                      "library": "torch.nn.functional.scaled_dot_product_"
+                                 "attention(is_causal=True) on (B, H, S, D), "
+                                 "k/v repeated to H outside the timing"})
+        del q, k, v, kr, vr, qt
+    print("kernels B9 agrees with its plain version (f32 rtol=atol="
+          f"{B9_TOL}; bf16 within one bf16 ulp of the f32 plain version "
+          f"where |value| >= 2**-7, one ulp + {B9_TOL} below, and 2e-2 of "
+          f"the bf16 plain version)", flush=True)
+
+    # the model path with B9 swapped for its plain version: the control
+    # that shows B9's share of a difference
+    plain_attention = unittest.mock.patch.object(ops, "flash_attention",
+                                                 ref.flash_attention)
+
+    def counts_only(label, counts, b9):
+        expect_counts(label, counts, {name: (b9 if name == "flash_attention"
+                                             else 0) for name in counts})
+        add(counts)
+
+    # -- 9b. qwen3-1.7b at full width, bf16 -------------------------------
+    cfg = get_arch(SERVE_ARCH)
+    gen_m = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # tensors of earlier phases
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen_m, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != SERVE_PARAMS:
+        fail(f"{SERVE_ARCH} has {n_params} params, expected {SERVE_PARAMS}")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen_m, device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, batch)                       # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tok_prefill = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    counts_only("prefill step", counts, cfg.num_layers)
+    reset_counts()
+    logits_pf = transformer.forward(params, cfg, batch, last_only=True)[0]
+    counts_only("prefill logits", read_counts(), cfg.num_layers)
+    with plain_attention:
+        logits_plain = transformer.forward(params, cfg, batch,
+                                           last_only=True)[0]
+    serve_step = steps.make_serve_step(cfg)
+    # one slot more than the run needs: the profiled step of 9e
+    state = transformer.init_decode(cfg, SERVE_BATCH,
+                                    SERVE_PROMPT + SERVE_GEN + 1, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT - 1):
+        tok, state = serve_step(params, state, prompts[:, t])
+    # the last prompt token twice on the same state (the cache write is
+    # the same): once for the logits, once through the serve step
+    logits_tf = transformer.decode_step(params, cfg, state,
+                                        prompts[:, -1])[0]
+    tok, state = serve_step(params, state, prompts[:, -1])
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    generated = []
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN):
+        generated.append(tok)
+        tok, state = serve_step(params, state, tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / SERVE_GEN
+    counts_only("decode", read_counts(), 0)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not torch.equal(torch.argmax(logits_tf, dim=-1).to(torch.int32),
+                       generated[0]):
+        fail("the serve step's token is not the argmax of its logits")
+    rel_kernel = rel_diff(logits_pf[:, 0], logits_tf)
+    rel_plain = rel_diff(logits_plain[:, 0], logits_tf)
+    rel_kp = rel_diff(logits_pf, logits_plain)
+    if not (torch.isfinite(logits_pf).all() and rel_kernel <= 3e-2):
+        fail(f"{SERVE_ARCH} bf16: prefill logits differ from the teacher-"
+             f"forced decode's by {rel_kernel:.3e} of max |logit| > 3e-2")
+    agree = (tok_prefill == generated[0]).sum().item()
+    gen_tokens = torch.stack(generated, dim=1).cpu()
+    print(f"path serve {SERVE_ARCH} bf16 params={n_params} layers="
+          f"{cfg.num_layers} batch={SERVE_BATCH} prompt={SERVE_PROMPT} gen="
+          f"{SERVE_GEN} init_s={init_s:.2f} prefill_ms={1e3 * prefill_s:.3f} "
+          f"prefill_tokens/s={SERVE_BATCH * SERVE_PROMPT / prefill_s:.1f} "
+          f"teacher-forced_ms/token={1e3 * forced_s / SERVE_PROMPT:.3f} "
+          f"decode_ms/token={decode_ms:.3f} decode_tokens/s="
+          f"{SERVE_BATCH * 1e3 / decode_ms:.1f} peak_mem_GB={peak_gb:.3f} "
+          f"(params, caches and activations above the phase's start) "
+          f"launches={counts} prefill token == forced token for {agree}/"
+          f"{SERVE_BATCH} requests sample={gen_tokens[0, :8].tolist()}",
+          flush=True)
+    print(f"check prefill-vs-teacher-forced {SERVE_ARCH} bf16 max|logit "
+          f"diff|/max|logit|: B9 prefill {rel_kernel:.3e} (<= 3e-2), plain-"
+          f"attention prefill {rel_plain:.3e}, B9 against plain prefill "
+          f"{rel_kp:.3e}", flush=True)
+    del logits_plain
+
+    # -- 9c. the same model in f32, 128 prompt tokens ---------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p32 = {"tokens": prompts[:, :F32_PROMPT].contiguous()}
+    for window in (None, F32_WINDOW):
+        reset_counts()
+        t0 = time.perf_counter()
+        tok_pf = steps.make_prefill_step(cfg32, window)(params32, p32)
+        torch.cuda.synchronize()
+        pf_ms = 1e3 * (time.perf_counter() - t0)
+        lg_pf = transformer.forward(params32, cfg32, p32,
+                                    window_override=window,
+                                    last_only=True)[0][:, 0]
+        counts_only(f"f32 prefill window={window}", read_counts(),
+                    2 * cfg.num_layers)
+        state32 = transformer.init_decode(cfg32, SERVE_BATCH, F32_PROMPT,
+                                          window_override=window, device=dev)
+        step32 = steps.make_serve_step(cfg32, window)
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in range(F32_PROMPT - 1):
+            _, state32 = step32(params32, state32, p32["tokens"][:, t])
+        lg_tf = transformer.decode_step(params32, cfg32, state32,
+                                        p32["tokens"][:, -1],
+                                        window_override=window)[0]
+        torch.cuda.synchronize()
+        tf_s = time.perf_counter() - t0
+        counts_only(f"f32 decode window={window}", read_counts(), 0)
+        rel = rel_diff(lg_pf, lg_tf)
+        tok_tf = torch.argmax(lg_tf, dim=-1).to(torch.int32)
+        if not (rel <= 1e-4 and torch.equal(tok_pf, tok_tf)):
+            fail(f"{SERVE_ARCH} f32 window={window}: prefill against "
+                 f"teacher-forced decode {rel:.3e} of max |logit| (<= 1e-4), "
+                 f"tokens {tok_pf.tolist()} against {tok_tf.tolist()}")
+        print(f"check prefill-vs-teacher-forced {SERVE_ARCH} f32 prompt="
+              f"{F32_PROMPT} window={window} cache="
+              f"{state32.states.k.shape[2]} max|logit diff|/max|logit|="
+              f"{rel:.3e} (<= 1e-4) tokens equal {tok_pf.tolist()} "
+              f"B9 prefill_ms={pf_ms:.3f} teacher-forced {F32_PROMPT} steps "
+              f"in {tf_s:.2f}s", flush=True)
+    del params32, state32
+
+    # -- 9d. the card against the port's CPU run, smoke width, f32 --------
+    argv = ["--batch", "4", "--prompt-len", "32", "--gen", "16"]
+    out_card = serve.main(argv + ["--device", "cuda"])
+    out_cpu = serve.main(argv + ["--device", "cpu"])
+    smoke = get_smoke_arch(SERVE_ARCH)
+    variants = {"smoke": smoke, "smoke-gqa": dataclasses.replace(
+        smoke, num_heads=4, num_kv_heads=2, head_dim=128)}
+    for name, scfg in variants.items():
+        p_card, pr_card = serve.init_inputs(scfg, 4, 32, dev)
+        p_cpu, pr_cpu = serve.init_inputs(scfg, 4, 32, "cpu")
+        reset_counts()
+        lg_card = transformer.forward(p_card, scfg, {"tokens": pr_card},
+                                      last_only=True)[0]
+        counts_only(f"serve {name} prefill", read_counts(), scfg.num_layers)
+        lg_cpu = transformer.forward(p_cpu, scfg, {"tokens": pr_cpu},
+                                     last_only=True)[0]
+        rel = rel_diff(lg_card.cpu(), lg_cpu)
+        if name == "smoke":
+            tok_card, tok_cpu = out_card, out_cpu
+        else:
+            tok_card = serve.generate(p_card, scfg, pr_card, 16)[0].cpu()
+            tok_cpu = serve.generate(p_cpu, scfg, pr_cpu, 16)[0]
+        if not (rel <= 1e-4 and np.array_equal(np.asarray(tok_card),
+                                                np.asarray(tok_cpu))):
+            fail(f"serve {name}: card against CPU prefill logits {rel:.3e} "
+                 f"of max |logit| (<= 1e-4), tokens equal "
+                 f"{np.array_equal(np.asarray(tok_card), np.asarray(tok_cpu))}")
+        print(f"path serve {name} ({scfg.num_heads} heads over "
+              f"{scfg.num_kv_heads}, head dim {scfg.resolved_head_dim()}) f32 "
+              f"card-vs-cpu prefill max|logit diff|/max|logit|={rel:.3e} "
+              f"(<= 1e-4) generated tokens equal "
+              f"({tuple(np.asarray(tok_cpu).shape)})", flush=True)
+
+    # -- 9e. one full-width bf16 decode step under the profiler -----------
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok, state = serve_step(params, state, tok)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    busy, n_dev = device_profile(prof)
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile serve {SERVE_ARCH} bf16 decode step (batch "
+          f"{SERVE_BATCH}, token {SERVE_PROMPT + SERVE_GEN + 1}): wall_ms="
+          f"{prof_ms:.3f} device_busy_ms={busy_ms:.3f} busy_share="
+          f"{busy_ms / prof_ms:.4f} device_events={n_dev} top="
+          f"{[(n, round(v, 4)) for n, v in top]} (reported, not gated)",
+          flush=True)
+    del params, state
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
+    return [tree]
 
 
 def main() -> None:
@@ -616,7 +951,7 @@ def main() -> None:
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
     totals = {name: 0 for name in read_counts()}
     dense_only = {"sparse_mix": 0, "cluster_mix": 0, "robust_agg": 0,
-                  "consensus_mix": 0}
+                  "consensus_mix": 0, "flash_attention": 0}
 
     def add(counts):
         for name, c in counts.items():
@@ -1405,7 +1740,9 @@ def main() -> None:
     print(f"table ranking (mean rounds to 80% over the 4 stations, lower is "
           f"faster; reported, not gated): {ranking}", flush=True)
 
-    # -- 9. kernel table --------------------------------------------------
+    serving(dev, rows, record, add, expect_counts, bf16_ulp)
+
+    # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",
                             "src/repro/kernels/consensus_mix.py:77"),
                "flat_consensus": ("src/repro_torch/csrc/consensus_mix.cu",
@@ -1421,7 +1758,9 @@ def main() -> None:
                "cluster_mix": ("src/repro_torch/csrc/sparse_mix.cu",
                                "src/repro/kernels/cluster_mix.py:95"),
                "robust_agg": ("src/repro_torch/csrc/robust_agg.cu",
-                              "src/repro/kernels/robust_agg.py:90")}
+                              "src/repro/kernels/robust_agg.py:90"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:86")}
     table = []
     for name, (source, replaces) in sources.items():
         row = rows[name]

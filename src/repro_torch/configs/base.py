@@ -1,9 +1,10 @@
 """Configuration dataclasses of the port.
 
-``FedConfig``, ``MobilityConfig``, ``HierarchyConfig``, ``TrainConfig``,
-``MeshConfig``, ``RunConfig`` and ``FaultConfig`` keep every field name
-and default of the JAX package's configs, so a config reads the same in
-both. The sub-config the port does not run yet (ingest) is kept as a
+``ModelConfig``, ``ShapeConfig``, ``FedConfig``, ``MobilityConfig``,
+``HierarchyConfig``, ``TrainConfig``, ``MeshConfig``, ``RunConfig`` and
+``FaultConfig`` keep every field name and default of the JAX package's
+configs, and ``INPUT_SHAPES`` and ``reduced`` its values, so a config
+reads the same in both. The sub-config the port does not run yet (ingest) is kept as a
 ``FedConfig`` field, and ``build_trainer`` refuses a config that sets
 it.
 """
@@ -14,6 +15,117 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 from repro_torch.configs.paper_models import MLPConfig
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (one instance per assigned arch)."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int                   # query heads (0 for attention-free)
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    # --- attention options -------------------------------------------------
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None   # native SWA (e.g. mixtral)
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # --- SSM / hybrid -------------------------------------------------------
+    ssm_state: int = 0               # mamba2 state dim
+    ssm_heads: int = 0               # rwkv / mamba head count (0 -> num_heads)
+    # per-layer block kinds; empty -> homogeneous from family
+    block_pattern: Tuple[str, ...] = ()    # entries: attn|mamba|rwkv|shared_attn
+    # --- modality frontends (stubs per spec) --------------------------------
+    modality: str = "text"           # text | vision | audio
+    num_patches: int = 1024          # vlm: patch embeddings per image
+    # --- misc ----------------------------------------------------------------
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "swiglu"              # swiglu | gelu
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""                 # citation
+
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    def blocks(self) -> Tuple[str, ...]:
+        if self.block_pattern:
+            assert len(self.block_pattern) == self.num_layers
+            return self.block_pattern
+        kind = {"ssm": "rwkv"}.get(self.family, "attn")
+        return tuple(kind for _ in range(self.num_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for roofline MODEL_FLOPS)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim()
+        total = v * d                                   # embed
+        if not self.tie_embeddings:
+            total += v * d                              # lm head
+        for kind in self.blocks():
+            if kind in ("attn", "shared_attn"):
+                q = d * self.num_heads * hd
+                kv = 2 * d * self.num_kv_heads * hd
+                o = self.num_heads * hd * d
+                total += q + kv + o
+            elif kind == "rwkv":
+                # r,k,v,g,o projections + data-dependent decay lora
+                total += 5 * d * d + 2 * d * 64
+            elif kind == "mamba":
+                d_inner = 2 * d
+                total += d * (2 * d_inner) + d_inner * d    # in/out proj
+                total += d_inner * (2 * self.ssm_state)      # B,C
+                total += d_inner                              # dt, A diag
+            if self.num_experts:
+                total += self.num_experts * 3 * d * f       # swiglu experts
+                total += d * self.num_experts               # router
+            else:
+                mult = 3 if self.act == "swiglu" else 2
+                total += mult * d * f
+            total += 2 * d                                   # norms
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_experts = self.num_layers * self.num_experts * 3 * d * f
+        active_experts = self.num_layers * self.experts_per_token * 3 * d * f
+        return self.param_count() - dense_experts + active_experts
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -190,3 +302,34 @@ class RunConfig:
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
+
+
+def reduced(model: ModelConfig, *, layers: int = 2, d_model: int = 256,
+            d_ff: int = 512, vocab: int = 512, experts: int = 0) -> ModelConfig:
+    """Reduced same-family variant for CPU smoke tests (spec: 2 layers,
+    d_model<=512, <=4 experts)."""
+    heads = max(1, min(model.num_heads, d_model // 64)) if model.num_heads else 0
+    kv = max(1, min(model.num_kv_heads, heads)) if heads else 0
+    n_exp = min(model.num_experts, experts or 4) if model.num_experts else 0
+    top_k = min(model.experts_per_token, n_exp) if n_exp else 0
+    pattern = ()
+    if model.block_pattern:
+        pattern = model.block_pattern[:layers]
+    return dataclasses.replace(
+        model,
+        name=model.name + "-smoke",
+        num_layers=layers,
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=0,
+        d_ff=d_ff,
+        vocab_size=vocab,
+        num_experts=n_exp,
+        experts_per_token=top_k,
+        ssm_state=min(model.ssm_state, 16) if model.ssm_state else 0,
+        block_pattern=pattern,
+        sliding_window=min(model.sliding_window, 128) if model.sliding_window else None,
+        num_patches=16,
+        dtype="float32",
+    )

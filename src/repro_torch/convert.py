@@ -3,9 +3,9 @@
 The JAX package keeps node-stacked params as a dict pytree and its Adam
 moments as lane-padded ``(K, P)`` buffers in the same column order as the
 port (leaves by sorted key). These functions take those values as numpy
-arrays (anything ``numpy.asarray`` accepts), so both packages can compute
-from the same numbers. Nothing here imports the JAX package: a state is
-read by its field names.
+arrays (anything ``numpy.asarray`` accepts, bfloat16 included), so both
+packages can compute from the same numbers. Nothing here imports the JAX
+package: a state is read by its field names.
 """
 from __future__ import annotations
 
@@ -17,7 +17,46 @@ from repro_torch.core.cdfl import FedState
 from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
 from repro_torch.hierarchy.mixing import HierEta
+from repro_torch.models import attention, transformer
 from repro_torch.optim.adam import FlatAdamState
+
+
+def tensor_from_numpy(value, device) -> torch.Tensor:
+    """One array -> a tensor of the same dtype on ``device``; numpy's
+    ``bfloat16`` extension type (what a JAX bf16 array converts to) comes
+    across bit for bit."""
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
+def transformer_params_from_numpy(tree: dict, device=None) -> dict:
+    """The JAX package's transformer params (a nested dict, layers stacked
+    along a leading L axis under ``"layers"``) -> the same nested dict of
+    tensors, key path for key path, each leaf in its own dtype."""
+    dev = resolve_device(device)
+    if not isinstance(tree, dict) or not tree:
+        raise ValueError("params must be a non-empty nested dict of arrays")
+    return {name: transformer_params_from_numpy(sub, dev)
+            if isinstance(sub, dict) else tensor_from_numpy(sub, dev)
+            for name, sub in tree.items()}
+
+
+def decode_state_from_numpy(state, device=None) -> transformer.DecodeState:
+    """A JAX package ``DecodeState`` of a dense stack (read by field name:
+    ``states.k/v/length`` stacked along L, ``pos``) -> the port's."""
+    dev = resolve_device(device)
+    caches = state.states
+    return transformer.DecodeState(
+        states=attention.KVCache(
+            k=tensor_from_numpy(caches.k, dev),
+            v=tensor_from_numpy(caches.v, dev),
+            length=torch.tensor(np.asarray(caches.length), dtype=torch.int32,
+                                device=dev)),
+        pos=torch.tensor(np.asarray(state.pos), dtype=torch.int32,
+                         device=dev))
 
 
 def params_from_numpy(tree: dict, device=None):

@@ -22,6 +22,7 @@ from pathlib import Path
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,6 +51,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "robust_agg": {
         "repro_robust_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "flash_attention": {
+        "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _F, _P],
+        "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _F, _P],
     },
 }
 

@@ -1,0 +1,70 @@
+"""Wrapper of the B9 ``flash_attention`` CUDA kernel
+(``csrc/flash_attention.cu``), which replaces the Pallas kernel of
+``src/repro/kernels/flash_attention.py``: online-softmax attention with
+GQA, causal and sliding-window masks, q at position 0.
+
+CUDA tensors only (see :mod:`repro_torch.kernels.consensus_mix` for the
+conventions). The kernel has no backward, as the TPU kernel has none, so
+the wrapper refuses inputs that require grad. It counts its launches in
+its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.consensus_mix import _check_cuda, _require, _stream
+
+_LIB = "flash_attention"
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEAD_DIMS = (32, 64, 128)
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window) -> tuple[int, int, int, int, int, int]:
+    """Shape and dtype checks of B9; returns (B, Sq, Sk, H, KV, D)."""
+    _require(q.dim() == 4 and k.dim() == 4,
+             f"q and k must be (B, S, H, D), got {tuple(q.shape)} and "
+             f"{tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    _require(k.shape == (b, sk, kvh, d) and v.shape == k.shape,
+             f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+             f"({b}, Sk, KV, {d})")
+    _require(sk >= 1 and kvh >= 1 and h % kvh == 0,
+             f"need Sk >= 1 and H={h} a multiple of KV={kvh}")
+    _require(d in HEAD_DIMS, f"head dim {d} not supported {HEAD_DIMS}")
+    _require(q.dtype in _SUFFIX,
+             f"dtype {q.dtype} not supported (float32 or bfloat16)")
+    _require(k.dtype == q.dtype and v.dtype == q.dtype,
+             f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    _require(window is None or window >= 1,
+             f"window must be None or >= 1, got {window}")
+    return b, sq, sk, h, kvh, d
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q (B, Sq, H, D); k/v (B, Sk, KV, D), contiguous, float32 or
+    bfloat16, D in 32 | 64 | 128 -> (B, Sq, H, D) in q's dtype. Scale
+    ``D**-0.5``; a key j is live for query i when ``j <= i`` (causal) and
+    ``j > i - window`` (window). Any Sq and Sk."""
+    _require(not (q.requires_grad or k.requires_grad or v.requires_grad),
+             "flash_attention has no backward (nor has the TPU kernel it "
+             "ports): pass tensors that do not require grad")
+    dev = _check_cuda(q, k, v)
+    b, sq, sk, h, kvh, d = check_args(q, k, v, window)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    fn = f"repro_flash_attention_{_SUFFIX[q.dtype]}"
+    code = getattr(_build.library(_LIB), fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, kvh, d, int(causal), -1 if window is None else int(window),
+        d ** -0.5, _stream(dev))
+    flash_attention.launches += 1
+    _build.check(_LIB, fn, code)
+    return out
+
+
+flash_attention.launches = 0

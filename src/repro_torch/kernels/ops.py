@@ -1,4 +1,4 @@
-"""Public entry points of the B1-B8 kernels.
+"""Public entry points of the B1-B9 kernels.
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import cluster_mix as _clm
 from repro_torch.kernels import cnd_sketch as _cs
 from repro_torch.kernels import consensus_mix as _cm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust_agg as _ra
 from repro_torch.kernels import sparse_mix as _sm
@@ -119,3 +120,15 @@ def cnd_popcount(bitmaps) -> torch.Tensor:
     if _on_cuda(bitmaps):
         return _cs.cnd_popcount(bitmaps)
     return ref.cnd_popcount(bitmaps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window=None) -> torch.Tensor:
+    """Online-softmax GQA attention (B9): q (B, Sq, H, D), k/v (B, Sk, KV,
+    D) -> (B, Sq, H, D) in q's dtype, q at position 0, scale ``D**-0.5``,
+    causal and sliding-window masks."""
+    if _on_cuda(q):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)

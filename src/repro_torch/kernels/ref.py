@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the B1-B8 kernels: the CPU path of
+"""Plain PyTorch versions of the B1-B9 kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
 against on the card. Device-agnostic tensor code."""
 from __future__ import annotations
@@ -122,3 +122,11 @@ def cnd_bitmaps(items: torch.Tensor, num_hashes: int = 3,
 
 def cnd_popcount(bitmaps: torch.Tensor) -> torch.Tensor:
     return _sketch.set_bits(bitmaps)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) -> the model's reference
+    attention, :func:`repro_torch.models.attention.attend`."""
+    from repro_torch.models import attention
+    return attention.attend(q, k, v, causal=causal, window=window)

@@ -1,0 +1,38 @@
+"""Serving step functions: prefill a batch of prompts, and decode one
+token against the KV caches — the serving half of the JAX package's
+``repro.launch.steps``. Both return the greedy (argmax) next tokens as
+int32. The federated mesh step and the dry-run structs are not ported yet
+(ROADMAP queue A items 23c and 24).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def make_prefill_step(cfg: ModelConfig, window_override=None):
+    """``prefill_step(params, batch) -> (B,) int32``: the whole prompt in
+    one forward (attention through kernel B9 on the card), logits of the
+    last position only."""
+
+    def prefill_step(params, batch):
+        logits, _ = transformer.forward(
+            params, cfg, batch, window_override=window_override,
+            last_only=True)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, window_override=None):
+    """Single-token decode against a KV cache of seq_len tokens:
+    ``serve_step(params, decode_state, tokens) -> ((B,) int32,
+    new_state)``."""
+
+    def serve_step(params, decode_state, tokens):
+        logits, new_state = transformer.decode_step(
+            params, cfg, decode_state, tokens,
+            window_override=window_override)
+        return torch.argmax(logits, dim=-1).to(torch.int32), new_state
+    return serve_step

@@ -1,0 +1,196 @@
+"""Decoder-only model assembled from a ModelConfig: the dense family
+(llama/qwen-style homogeneous attention stacks) of the JAX package's
+``repro.models.transformer``.
+
+Layer params are stacked along a leading L axis, as the JAX package stacks
+them for its ``lax.scan``; a Python loop over the layers takes the scan's
+place. MoE, SSM (rwkv6), hybrid (zamba2) and the vision and audio
+modalities are not ported yet: every entry point refuses them with the
+ROADMAP item that ports them (:data:`repro_torch.registry.MODEL_NOT_PORTED`).
+
+API:
+  init_params(cfg, generator, device, dtype) -> params dict
+  forward(params, cfg, batch, ...)            -> (logits, aux_loss)
+  loss_fn(params, cfg, batch)                 -> scalar
+  init_decode(cfg, batch, max_len, ...)       -> DecodeState
+  decode_step(params, cfg, state, tokens)     -> (logits, DecodeState)
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers
+from repro_torch.registry import check_model_ported
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a params subtree stacked along a leading L axis."""
+    if isinstance(tree, dict):
+        return {name: _layer(sub, i) for name, sub in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {name: _stack([t[name] for t in trees]) for name in trees[0]}
+    return torch.stack(trees)
+
+
+# --------------------------------------------------------------------------
+# Block init / apply
+# --------------------------------------------------------------------------
+
+def _block_init(generator, cfg: ModelConfig, dtype, device):
+    norm_init, _ = layers.make_norm(cfg.norm)
+    mlp_init, _ = layers.make_mlp(cfg.act)
+    return {"norm1": norm_init(cfg.d_model, dtype, device),
+            "norm2": norm_init(cfg.d_model, dtype, device),
+            "mix": attention.init(generator, cfg, dtype, device),
+            "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)}
+
+
+def _apply_block(p, cfg: ModelConfig, x, *, state=None, decode: bool = False,
+                 window_override=None):
+    """Returns (x, new_state)."""
+    _, norm_fn = layers.make_norm(cfg.norm)
+    _, mlp_fn = layers.make_mlp(cfg.act)
+    h = norm_fn(p["norm1"], x)
+    if decode:
+        mix_out, new_state = attention.decode_step(p["mix"], cfg, h, state,
+                                                   window_override)
+    else:
+        mix_out = attention.forward(p["mix"], cfg, h,
+                                    window_override=window_override)
+        new_state = state
+    x = x + mix_out
+    h = norm_fn(p["norm2"], x)
+    return x + mlp_fn(p["ffn"], h), new_state
+
+
+# --------------------------------------------------------------------------
+# Params
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device=None, dtype=None):
+    """Random params of ``cfg``, drawn from ``generator`` (a CPU generator
+    seeded with 0 when None) on the generator's device and moved to
+    ``device`` (None means ``"cuda"``) in ``dtype`` (None: the config's)."""
+    check_model_ported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or _dtype(cfg)
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(0)
+    norm_init, _ = layers.make_norm(cfg.norm)
+    params = {
+        "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, dev),
+        "final_norm": norm_init(cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {
+            "table": layers._dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                        scale=0.02, dtype=dtype, device=dev)}
+    params["layers"] = _stack([_block_init(gen, cfg, dtype, dev)
+                               for _ in range(cfg.num_layers)])
+    return params
+
+
+# --------------------------------------------------------------------------
+# Forward (train / prefill)
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
+            last_only: bool = False):
+    """batch: {"tokens": (B, S) int}. Returns (logits (B, S_out, V) f32,
+    aux scalar). last_only: unembed only the final position (prefill
+    serving — avoids the (B,S,V) logits). Inference only: the attention
+    kernel has no backward."""
+    check_model_ported(cfg)
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens).to(_dtype(cfg))
+    for i in range(cfg.num_layers):
+        x, _ = _apply_block(_layer(params["layers"], i), cfg, x,
+                            window_override=window_override)
+    _, norm_fn = layers.make_norm(cfg.norm)
+    x = norm_fn(params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:, :]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(head, x)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
+    """Next-token cross entropy (labels provided by the data pipeline),
+    as a forward only: logsumexp minus the label's logit, masked mean."""
+    logits, aux = forward(params, cfg, batch, **kw)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - picked
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    return loss + cfg.router_aux_coef * aux
+
+
+# --------------------------------------------------------------------------
+# Decode
+# --------------------------------------------------------------------------
+
+class DecodeState(NamedTuple):
+    states: attention.KVCache   # per-layer caches stacked along L
+    pos: torch.Tensor
+
+
+def init_decode(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                window_override=None, device=None) -> DecodeState:
+    """Empty KV caches for ``batch`` sequences of up to ``max_len`` tokens
+    (a ring buffer of the window's size when a window applies)."""
+    check_model_ported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or _dtype(cfg)
+    window = window_override if window_override is not None \
+        else cfg.sliding_window
+    one = attention.init_cache(cfg, batch, max_len, dtype, window, dev)
+    states = attention.KVCache(
+        *(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))
+    return DecodeState(states=states,
+                       pos=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, state: DecodeState,
+                tokens: torch.Tensor, *, window_override=None):
+    """tokens: (B,) int — one new token per sequence.
+    Returns (logits (B, V) f32, new DecodeState). The caches of ``state``
+    are updated in place (see :func:`attention.decode_step`)."""
+    check_model_ported(cfg)
+    x = layers.embed(params["embed"], tokens[:, None]).to(_dtype(cfg))
+    lengths = []
+    for i in range(cfg.num_layers):
+        cache = attention.KVCache(*(t[i] for t in state.states))
+        x, new = _apply_block(_layer(params["layers"], i), cfg, x,
+                              state=cache, decode=True,
+                              window_override=window_override)
+        lengths.append(new.length)
+    _, norm_fn = layers.make_norm(cfg.norm)
+    x = norm_fn(params["final_norm"], x)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(head, x)[:, 0, :]
+    states = attention.KVCache(state.states.k, state.states.v,
+                               torch.stack(lengths))
+    return logits, DecodeState(states=states, pos=state.pos + 1)

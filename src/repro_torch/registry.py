@@ -20,7 +20,10 @@ caller.
 
 Names the JAX package knows but the port does not run yet are listed in
 :data:`NOT_PORTED`: a config may name them, and ``build_trainer`` refuses
-them with the ROADMAP item that will port them.
+them with the ROADMAP item that will port them. Its model-side twin,
+:data:`MODEL_NOT_PORTED`, does the same for the model families, block
+kinds and modalities of ``ModelConfig`` that ``models/transformer.py``
+does not build yet (:func:`check_model_ported`).
 """
 from __future__ import annotations
 
@@ -96,6 +99,41 @@ NOT_PORTED = {
                              "transports)",
     ("ingest", None): "ROADMAP queue A item 19 (ingest)",
 }
+
+_MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"
+_RWKV = "ROADMAP queue A item 23b (rwkv6 serving through kernel B10)"
+
+# (ModelConfig field, value) -> the ROADMAP item that ports it; the
+# transformer builds dense homogeneous attention stacks over text
+MODEL_NOT_PORTED = {
+    ("family", "moe"): _MOE,
+    ("family", "ssm"): _RWKV,
+    ("family", "hybrid"): _MOE,
+    ("family", "vlm"): _MOE,
+    ("family", "audio"): _MOE,
+    ("block", "rwkv"): _RWKV,
+    ("block", "mamba"): _MOE,
+    ("block", "shared_attn"): _MOE,
+    ("modality", "vision"): _MOE,
+    ("modality", "audio"): _MOE,
+    ("num_experts", None): _MOE,
+}
+
+
+def check_model_ported(cfg) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for a
+    ``ModelConfig`` the port's transformer does not build yet."""
+    keys = [("family", cfg.family), ("modality", cfg.modality)]
+    keys += [("block", kind) for kind in dict.fromkeys(cfg.blocks())]
+    if cfg.num_experts:
+        keys.append(("num_experts", None))
+    for key in keys:
+        if key in MODEL_NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: ModelConfig.{key[0]}"
+                f"{'' if key[1] is None else '=' + repr(key[1])} is not "
+                f"ported to repro_torch yet: {MODEL_NOT_PORTED[key]}")
+
 
 _loaded = False
 

@@ -1,0 +1,174 @@
+"""Kernel B9 ``flash_attention``: the port's plain version against the JAX
+package's Pallas kernel in interpret mode and its reference ``attend``, on
+the CPU.
+
+The cases are those of tests/test_kernels.py (the causal sweep over MHA,
+GQA 2:1, MQA and a wide head in f32 and bf16; sliding windows 32/64/128;
+non-causal Sq=128 Sk=256) at that file's tolerances (2e-5 f32, 2e-2
+bf16), plus ragged lengths, which the Pallas kernel's block asserts
+refuse, against ``repro.models.attention.attend``, and rows with no live
+key. Inputs are made with numpy. The CUDA kernel itself runs only on the
+card (``chip_smoke.py``); here its wrapper's checks run up to the launch.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as jattention
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as tattention
+
+_DT = {"f32": (jnp.float32, torch.float32),
+       "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype):
+    return 2e-2 if dtype == "bf16" else 2e-5
+
+
+def _qkv(b, sq, sk, h, kv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=shape).astype(np.float32)
+            for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+    jdt, tdt = _DT[dtype]
+    # both sides see the same values: round to the dtype once, on the JAX
+    # side, and hand the rounded numbers across
+    jx = [jnp.asarray(a).astype(jdt) for a in arrs]
+    tx = [torch.tensor(np.asarray(a.astype(jnp.float32))).to(tdt) for a in jx]
+    return jx, tx
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+# tests/test_kernels.py::test_flash_attention_sweep
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (1, 128, 128, 2, 2, 64),     # MHA
+    (2, 256, 256, 4, 2, 64),     # GQA 2:1
+    (1, 128, 128, 8, 1, 32),     # MQA
+    (1, 512, 512, 2, 2, 128),    # long, wide head
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_b9_matches_pallas_sweep(b, sq, sk, h, kv, d, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, sk, h, kv, d, dtype, sq + h)
+    pallas = pallas_flash(jq, jk, jv, causal=True, window=None, block_q=64,
+                          block_k=64, interpret=True)
+    got = ref.flash_attention(q, k, v, causal=True, window=None)
+    assert got.dtype == q.dtype and tuple(got.shape) == (b, sq, h, d)
+    _close(got, pallas, _tol(dtype))
+    _close(got, jref.flash_attention(jq, jk, jv, causal=True, window=None),
+           _tol(dtype))
+
+
+# tests/test_kernels.py::test_flash_attention_sliding_window
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_plain_b9_matches_pallas_sliding_window(window):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 256, 256, 2, 2, 64, "f32", window)
+    pallas = pallas_flash(jq, jk, jv, causal=True, window=window, block_q=64,
+                          block_k=64, interpret=True)
+    _close(ref.flash_attention(q, k, v, causal=True, window=window), pallas,
+           2e-5)
+
+
+# tests/test_kernels.py::test_flash_attention_non_square_blocks
+def test_plain_b9_matches_pallas_non_causal_cross():
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 256, 2, 2, 64, "f32", 0)
+    pallas = pallas_flash(jq, jk, jv, causal=False, window=None, block_q=32,
+                          block_k=128, interpret=True)
+    _close(ref.flash_attention(q, k, v, causal=False, window=None), pallas,
+           2e-5)
+
+
+@pytest.mark.parametrize("window,dtype", [(None, "f32"), (24, "f32"),
+                                          (None, "bf16")])
+def test_plain_b9_ragged_lengths_match_attend(window, dtype):
+    """Sq = Sk = 100, GQA 2:1: lengths the Pallas kernel's block asserts
+    refuse and the CUDA kernel takes."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 100, 100, 4, 2, 64, dtype, 100)
+    want = jattention.attend(jq, jk, jv, causal=True, window=window)
+    _close(ops.flash_attention(q, k, v, causal=True, window=window), want,
+           _tol(dtype))
+
+
+def test_rows_without_a_live_key_average_v_as_the_pallas_kernel_does():
+    """Causal with a window and Sk < Sq: queries past Sk + window - 1 see
+    no live key. The Pallas kernel's -1e30 scores make every probability
+    exactly 1 until a live key arrives, so such a row is the uniform
+    average of v over all keys, as in ``attend``; B9 on the card gives the
+    same (chip_smoke.py checks it)."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 64, 2, 1, 32, "f32", 7)
+    pallas = pallas_flash(jq, jk, jv, causal=True, window=16, block_q=32,
+                          block_k=32, interpret=True)
+    got = ref.flash_attention(q, k, v, causal=True, window=16)
+    _close(got, pallas, 2e-5)
+    dead = got[0, 100:, 0]                       # rows 79.. have no key
+    mean_v = v[0, :, 0].mean(dim=0)
+    np.testing.assert_allclose(dead.numpy(),
+                               mean_v.expand_as(dead).numpy(), atol=2e-6)
+
+
+def test_ops_dispatch_cpu_to_attend_and_refuse_other_devices():
+    _, (q, k, v) = _qkv(1, 16, 16, 4, 2, 32, "f32", 3)
+    before = tfa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=None)
+    assert torch.equal(got, tattention.attend(q, k, v, causal=True,
+                                              window=None))
+    meta = torch.empty((1, 16, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ops.flash_attention(meta, meta[:, :, :2], meta[:, :, :2])
+    assert tfa.flash_attention.launches == before
+
+
+def test_wrapper_refuses_inputs_that_require_grad():
+    """No backward kernel exists (nor in the JAX package), so the wrapper
+    refuses a tensor that requires grad before it looks at the device."""
+    _, (q, k, v) = _qkv(1, 16, 16, 2, 2, 32, "f32", 4)
+    before = tfa.flash_attention.launches
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="no backward"):
+            tfa.flash_attention(*args)
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        tfa.flash_attention(q, k, v)
+    assert tfa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("bad,msg", [
+    ("q3d", "must be \\(B, S, H, D\\)"), ("kv_shape", "must be"),
+    ("heads", "multiple of KV"), ("d48", "head dim 48"),
+    ("f16", "not supported"), ("mixed", "dtypes differ"),
+    ("window0", "window must be"),
+])
+def test_wrapper_checks_before_launch(bad, msg, monkeypatch):
+    """With the device check passed, every malformed call raises on its
+    shape, dtype or window before any launch."""
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *t: t[0].device)
+    q, k = torch.zeros((1, 8, 4, 32)), torch.zeros((1, 8, 2, 32))
+    args, kw = [q, k, k.clone()], {}
+    if bad == "q3d":
+        args[0] = torch.zeros((8, 4, 32))
+    elif bad == "kv_shape":
+        args[2] = torch.zeros((1, 9, 2, 32))
+    elif bad == "heads":
+        args[1] = args[2] = torch.zeros((1, 8, 3, 32))
+    elif bad == "d48":
+        args = [torch.zeros((1, 8, 4, 48)), torch.zeros((1, 8, 2, 48)),
+                torch.zeros((1, 8, 2, 48))]
+    elif bad == "f16":
+        args = [a.half() for a in args]
+    elif bad == "mixed":
+        args[2] = args[2].to(torch.bfloat16)
+    elif bad == "window0":
+        kw["window"] = 0
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match=msg):
+        tfa.flash_attention(*args, **kw)
+    assert tfa.flash_attention.launches == before

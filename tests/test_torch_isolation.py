@@ -12,18 +12,21 @@ import torch
 
 from repro.configs import base as jbase
 from repro.configs import paper_models as jmodels
+from repro.configs import registry as jregistry
 from repro.data import pipeline as jpipeline
 from repro.data import redundancy as jredundancy
 from repro.data import synthetic as jsynthetic
 from repro_torch import convert, registry
 from repro_torch.configs import base as tbase
 from repro_torch.configs import paper_models as tmodels
+from repro_torch.configs import registry as tregistry
 from repro_torch.configs.paper_models import MLP_CONFIG
 from repro_torch.core import cdfl
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.data import redundancy as tredundancy
 from repro_torch.data import synthetic as tsynthetic
-from repro_torch.models import simple
+from repro_torch.launch import serve
+from repro_torch.models import simple, transformer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -60,7 +63,8 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["FedConfig", "TrainConfig", "MeshConfig",
                                   "MobilityConfig", "HierarchyConfig",
-                                  "FaultConfig"])
+                                  "FaultConfig", "ModelConfig",
+                                  "ShapeConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tbase, name)) == _fields(getattr(jbase, name))
 
@@ -69,6 +73,66 @@ def test_run_config_and_mlp_config_match_reference():
     assert [f.name for f in dataclasses.fields(tbase.RunConfig)] == \
         [f.name for f in dataclasses.fields(jbase.RunConfig)]
     assert _fields(tmodels.MLPConfig) == _fields(jmodels.MLPConfig)
+
+
+def _values(cfg):
+    return [(f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg)]
+
+
+@pytest.mark.parametrize("arch", sorted(jregistry.ARCHS))
+def test_arch_configs_match_reference_value_by_value(arch):
+    mine, ref = tregistry.get_arch(arch), jregistry.get_arch(arch)
+    assert _values(mine) == _values(ref)
+    assert _values(tregistry.get_smoke_arch(arch)) == \
+        _values(jregistry.get_smoke_arch(arch))
+    assert _values(tbase.reduced(mine, layers=3, d_model=128, experts=2)) \
+        == _values(jbase.reduced(ref, layers=3, d_model=128, experts=2))
+    for method in ("resolved_head_dim", "blocks", "param_count",
+                   "active_param_count"):
+        assert getattr(mine, method)() == getattr(ref, method)()
+
+
+def test_arch_registry_and_input_shapes_match_reference():
+    assert list(tregistry.ARCHS) == list(jregistry.ARCHS)
+    assert {k: _values(v) for k, v in tbase.INPUT_SHAPES.items()} == \
+        {k: _values(v) for k, v in jbase.INPUT_SHAPES.items()}
+    assert [s.is_decode for s in tbase.INPUT_SHAPES.values()] == \
+        [s.is_decode for s in jbase.INPUT_SHAPES.values()]
+    with pytest.raises(KeyError, match="unknown arch"):
+        tregistry.get_arch("qwen9")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("mixtral-8x7b", "item 23c"), ("dbrx-132b", "item 23c"),
+    ("rwkv6-7b", "item 23b"), ("zamba2-1.2b", "item 23c"),
+    ("internvl2-26b", "item 23c"), ("musicgen-medium", "item 23c"),
+])
+def test_unported_model_families_are_refused(arch, item):
+    """Non-dense families, block kinds and modalities raise with the
+    ROADMAP item that ports them, from every model entry point."""
+    cfg = tregistry.get_smoke_arch(arch)
+    with pytest.raises(NotImplementedError, match=item):
+        transformer.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        transformer.init_decode(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        transformer.forward({}, cfg, {"tokens": torch.zeros((1, 4),
+                                                            dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match=item):
+        serve.main(["--arch", arch, "--device", "cpu"])
+    assert any(v.startswith(f"ROADMAP queue A {item}")
+               for v in registry.MODEL_NOT_PORTED.values())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b",
+                                  "codeqwen1.5-7b"])
+def test_dense_families_build(arch):
+    cfg = tregistry.get_smoke_arch(arch)
+    params = transformer.init_params(cfg, device="cpu")
+    assert params["layers"]["mix"]["wq"].shape[0] == cfg.num_layers
+    logits, _ = transformer.forward(params, cfg, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.int32)})
+    assert tuple(logits.shape) == (1, 4, cfg.vocab_size)
 
 
 def _loss():
@@ -84,6 +148,18 @@ def test_entry_points_default_to_the_card():
         simple.mlp_init(torch.Generator(), MLP_CONFIG)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.params_from_numpy({"w": np.zeros((2, 3), np.float32)})
+    cfg = tregistry.get_smoke_arch("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_decode(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.transformer_params_from_numpy(
+            {"embed": {"table": np.zeros((4, 2), np.float32)}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    assert serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1",
+                       "--device", "cpu"]).shape == (1, 1)
     tr = cdfl.build_trainer(_loss(), tbase.FedConfig(), tbase.TrainConfig(),
                             device="cpu")
     assert tr.device == torch.device("cpu")
