@@ -40,10 +40,21 @@ prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4 requests of
 forced through the serve step, 16 generated tokens; prefill logits held
 against the decode's) and in f32 (128 prompt tokens, with and without a
 64-token window), ``serve.main`` at smoke width on the card against the
-CPU (and a GQA variant), and one decode step under the profiler; the
-kernel table as one JSON line; and the verdict as the last line. Every path phase zeroes the
-kernels' launch counts before it runs and checks them after. Exits
-non-zero, with no verdict, when CUDA is absent or any check fails.
+CPU (and a GQA variant), and one decode step under the profiler; then
+the rwkv6 slice: B10 held against its plain version (tests/test_kernels.py's
+sweep, tests/test_ssm.py's shapes from a non-zero state, and the path's
+shapes up to rwkv6's prefill of B=4 S=2048), rwkv6-7b at full width in
+bf16 (4 requests of 512 prompt tokens through the prefill step, held to
+the plain-scan prefill with the sequential-scan prefill as the measure of
+what bf16 allows, and block by block from the same input; teacher-forced
+decode, 16 generated tokens, one profiled decode step) and in f32 (128
+prompt tokens through B10 and a ragged 120 through the sequential scan,
+each against teacher-forced decode), and ``serve.main --arch rwkv6-7b``
+at smoke width on the card against the CPU; the kernel table (ten
+kernels) as one JSON line; and the verdict as the last line. Every path
+phase zeroes the kernels' launch counts before it runs and checks them
+after. Exits non-zero, with no verdict, when CUDA is absent or any check
+fails.
 """
 from __future__ import annotations
 
@@ -104,8 +115,16 @@ SERVE_ARCH = "qwen3-1.7b"
 SERVE_PARAMS = 2_031_739_904  # every leaf, q/k norms and final norm included
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 16
 F32_PROMPT, F32_WINDOW = 128, 64
-PREFILL_S = 2048              # qwen3's prefill shape for B9's timing row
+PREFILL_S = 2048              # the prefill shape of B9's and B10's timing rows
 B9_TOL = 2e-5                 # f32 B9 against its plain version
+# rwkv6-7b at full width (src/repro/configs/rwkv6_7b.py)
+RWKV_ARCH = "rwkv6-7b"
+RWKV_PARAMS = 8_876_199_936   # every leaf: decay LoRA, bonus, norms included
+RWKV_F32_PROMPT, RWKV_RAGGED = 128, 120
+B10_TOL = 2e-5                # B10 against its plain version, of max |value|
+# bf16 rwkv6-7b, each block from the same input: B10 against its plain
+# version, of max |output| (two bf16 ulps at the top of a binade)
+RWKV_LAYER_TOL = 2.0 ** -6
 
 
 def fail(msg: str) -> None:
@@ -193,7 +212,8 @@ def node_arrays(nodes, local_steps: int = 10):
 def counted():
     """Every kernel wrapper with a launch count, by kernel name."""
     from repro_torch.kernels import cluster_mix, cnd_sketch, consensus_mix
-    from repro_torch.kernels import flash_attention, robust_agg, sparse_mix
+    from repro_torch.kernels import flash_attention, robust_agg, rwkv6_scan
+    from repro_torch.kernels import sparse_mix
     return {"flat_mix": consensus_mix.flat_mix,
             "flat_consensus": consensus_mix.flat_consensus,
             "consensus_mix": consensus_mix.consensus_mix,
@@ -202,7 +222,8 @@ def counted():
             "sparse_mix": sparse_mix.sparse_mix,
             "cluster_mix": cluster_mix.cluster_mix,
             "robust_agg": robust_agg.robust_agg,
-            "flash_attention": flash_attention.flash_attention}
+            "flash_attention": flash_attention.flash_attention,
+            "rwkv6_scan": rwkv6_scan.rwkv6_scan}
 
 
 def reset_counts() -> None:
@@ -551,6 +572,358 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
           f"{[(n, round(v, 4)) for n, v in top]} (reported, not gated)",
           flush=True)
     del params, state
+
+
+def b10_work(b: int, s: int, h: int, d: int, c: int,
+             in_bytes: int) -> tuple[int, int]:
+    """(bytes, f32 operations) of one B10 call from a zero state: r/k/v
+    read once in their dtype, w read and y written in f32, u read, the
+    final state written. Per chunk and (batch, head): 7 operations per
+    channel for each of the C(C-1)/2 causal pairs (the exponent's
+    difference and exponential, the r.k product and its sum, and the
+    score's multiply-add into y), 2 D^2 a token each for the state read
+    and the state update, D^2 for the state's decay, and 8 a channel and
+    token for the logs, sums, bonus and decay scales."""
+    n = b * s * h * d
+    nbytes = n * (3 * in_bytes + 4 + 4) + 4 * h * d + 4 * b * h * d * d
+    pairs = c * (c - 1) // 2
+    ops = b * h * (s // c) * (7 * pairs * d + 4 * c * d * d + d * d
+                              + 8 * c * d)
+    return nbytes, ops
+
+
+def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
+    """Kernel B10 and the rwkv6-7b serving path: B10 against its plain
+    version over tests/test_kernels.py's sweep, tests/test_ssm.py's shapes
+    from a non-zero state and the path's shapes; the full-width model in
+    bf16 (prefill through B10 against the plain-scan prefill, teacher-
+    forced decode, generation, one profiled decode step) and in f32
+    (prefill against decode at 128 tokens and at a ragged 120, which runs
+    the sequential scan); the card against the port's CPU run of
+    ``serve.main --arch rwkv6-7b`` at smoke width."""
+    from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers, rwkv, transformer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    # -- 11a. B10 against its plain version ------------------------------
+    # Both compute the scan in f32 from the same values (bf16 r/k/v are
+    # upcast by both); they differ in f32 summation order over S/C chunks
+    # and in exp2f/log2f against exp/log, a few f32 ulps of partial sums
+    # of up to D*C terms: about 1e-6 of max |value| (8.9e-7 at worst on an
+    # H100 80GB HBM3, 700 W). B10_TOL leaves a margin of about 20x, on y
+    # and on the final state alike.
+    def check_b10(b, s, h, d, chunk, dtype, decay, with_s0):
+        r, k, v = (torch.randn((b, s, h, d), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        z = torch.randn((b, s, h, d), generator=gen, device=dev)
+        if decay == "kernel":     # tests/test_kernels.py's w in (0.05, 0.95)
+            w = torch.sigmoid(z) * 0.9 + 0.05
+        else:                     # the model's clamp, w >= e^-4
+            w = torch.exp(-torch.clamp(torch.exp(z), 1e-6,
+                                       rwkv.MAX_LOG_DECAY))
+        u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+        s0 = (torch.randn((b, h, d, d), generator=gen, device=dev) * 0.3
+              if with_s0 else None)
+        y, sf = rw.rwkv6_scan(r, k, v, w, u, s0, chunk)
+        want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0, chunk)
+        torch.cuda.synchronize()
+        label = (f"B={b} S={s} H={h} D={d} chunk={chunk} {str(dtype)[6:]} "
+                 f"w={decay} s0={'yes' if with_s0 else 'zero'}")
+        err = 0.0
+        for name, got, want in (("y", y, want_y), ("state", sf, want_s)):
+            diff = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            err = max(err, diff)
+            if not diff <= B10_TOL * scale:
+                fail(f"rwkv6_scan {label}: {name} differs from its plain "
+                     f"version by {diff:.3e} > {B10_TOL} x max |{name}| "
+                     f"{scale:.3e}")
+        print(f"check rwkv6_scan {label} max_abs_err={err:.3e} "
+              f"(y max {want_y.abs().max().item():.3e}; tol {B10_TOL} of "
+              f"max |value|)", flush=True)
+        row = rows.setdefault("rwkv6_scan", {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        return r, k, v, w, u
+
+    for b, s, h, d, chunk in ((1, 64, 1, 64, 16), (2, 128, 3, 64, 32),
+                              (1, 256, 2, 128, 64)):
+        check_b10(b, s, h, d, chunk, torch.float32, "kernel", False)
+    for b, s, h, d in ((1, 16, 1, 32), (2, 64, 3, 64), (1, 128, 2, 16)):
+        check_b10(b, s, h, d, 16, torch.float32, "model", True)
+    check_b10(2, 64, 3, 64, 16, torch.bfloat16, "model", True)
+    # the path's shapes: the f32 prefill of 128 tokens, the bf16 serving
+    # prefill of 512 (timed), then rwkv6's prefill of 2048 (timed)
+    check_b10(SERVE_BATCH, RWKV_F32_PROMPT, 64, 64, 16, torch.float32,
+              "model", False)
+    for s_len in (SERVE_PROMPT, PREFILL_S):
+        r, k, v, w, u = check_b10(SERVE_BATCH, s_len, 64, 64, 16,
+                                  torch.bfloat16, "model", False)
+        nbytes, flops = b10_work(SERVE_BATCH, s_len, 64, 64, 16, 2)
+        record("rwkv6_scan", f"B={SERVE_BATCH} S={s_len} H=64 D=64 chunk=16 "
+               f"r/k/v bf16 w f32", rows["rwkv6_scan"]["max_abs_err"],
+               lambda: rw.rwkv6_scan(r, k, v, w, u),
+               lambda: ref.rwkv6_scan(r, k, v, w, u), None, nbytes, flops,
+               F32_OPS_PER_S, slow=True,
+               extra={"flop": flops, "library": "none: no single PyTorch "
+                                                "call computes the wkv scan"})
+        del r, k, v, w, u
+    print(f"kernels B10 agrees with its plain version (y and state within "
+          f"{B10_TOL} of max |value|)", flush=True)
+
+    # the model path with B10 swapped for its plain version (the control,
+    # as plain attention is for B9), and with the chunked form swapped for
+    # the sequential scan (the same function in another f32 order)
+    plain_b10 = unittest.mock.patch.object(ops, "rwkv6_scan",
+                                           ref.rwkv6_scan)
+    seq_scan = unittest.mock.patch.object(
+        rwkv, "chunked", lambda r, k, v, w, u, s0=None:
+        rwkv.scan_reference(r, k, v, w, u, s0))
+
+    def counts_only(label, counts, b10):
+        expect_counts(label, counts, {name: (b10 if name == "rwkv6_scan"
+                                             else 0) for name in counts})
+        add(counts)
+
+    # -- 11b. rwkv6-7b at full width, bf16 -------------------------------
+    cfg = get_arch(RWKV_ARCH)
+    gen_m = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen_m, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != RWKV_PARAMS:
+        fail(f"{RWKV_ARCH} has {n_params} params, expected {RWKV_PARAMS}")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen_m, device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    prefill = steps.make_prefill_step(cfg)
+    prefill(params, batch)                       # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tok_prefill = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    counts_only("rwkv prefill step", counts, cfg.num_layers)
+    reset_counts()
+    logits_pf = transformer.forward(params, cfg, batch, last_only=True)[0]
+    counts_only("rwkv prefill logits", read_counts(), cfg.num_layers)
+    with plain_b10:
+        logits_plain = transformer.forward(params, cfg, batch,
+                                           last_only=True)[0]
+    t0 = time.perf_counter()
+    with seq_scan:
+        logits_seq = transformer.forward(params, cfg, batch,
+                                         last_only=True)[0]
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    serve_step = steps.make_serve_step(cfg)
+    state = transformer.init_decode(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                    device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT - 1):
+        tok, state = serve_step(params, state, prompts[:, t])
+    # the last prompt token twice from the same state (rwkv states are not
+    # updated in place): once for the logits, once through the serve step
+    logits_tf = transformer.decode_step(params, cfg, state,
+                                        prompts[:, -1])[0]
+    tok, state = serve_step(params, state, prompts[:, -1])
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    generated = []
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN):
+        generated.append(tok)
+        tok, state = serve_step(params, state, tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / SERVE_GEN
+    counts_only("rwkv decode", read_counts(), 0)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not torch.equal(torch.argmax(logits_tf, dim=-1).to(torch.int32),
+                       generated[0]):
+        fail("the rwkv serve step's token is not the argmax of its logits")
+    rel_kernel = rel_diff(logits_pf[:, 0], logits_tf)
+    rel_plain = rel_diff(logits_plain[:, 0], logits_tf)
+    rel_seq = rel_diff(logits_seq[:, 0], logits_tf)
+    rel_kp = rel_diff(logits_pf, logits_plain)
+    rel_ps = rel_diff(logits_plain, logits_seq)
+    agree = (tok_prefill == generated[0]).sum().item()
+    gen_tokens = torch.stack(generated, dim=1).cpu()
+    print(f"path serve {RWKV_ARCH} bf16 params={n_params} layers="
+          f"{cfg.num_layers} batch={SERVE_BATCH} prompt={SERVE_PROMPT} gen="
+          f"{SERVE_GEN} init_s={init_s:.2f} prefill_ms={1e3 * prefill_s:.3f} "
+          f"prefill_tokens/s={SERVE_BATCH * SERVE_PROMPT / prefill_s:.1f} "
+          f"sequential-scan prefill_ms={1e3 * seq_s:.3f} "
+          f"teacher-forced_ms/token={1e3 * forced_s / SERVE_PROMPT:.3f} "
+          f"decode_ms/token={decode_ms:.3f} decode_tokens/s="
+          f"{SERVE_BATCH * 1e3 / decode_ms:.1f} peak_mem_GB={peak_gb:.3f} "
+          f"(params, states and activations above the phase's start) "
+          f"launches={counts} prefill token == forced token for {agree}/"
+          f"{SERVE_BATCH} requests sample={gen_tokens[0, :8].tolist()}",
+          flush=True)
+    # What bf16 rounding of the layer outputs allows: the plain path with
+    # its chunked scan swapped for the sequential scan computes the same
+    # function, differing below bf16's resolution only (f32 order); how
+    # far its logits move through 32 bf16 layers is the margin. B10
+    # against the plain version is a difference of the same kind, so it
+    # is held to twice that margin, and its drift from teacher-forced
+    # decode to the plain path's plus the same margin.
+    limit = 2 * rel_ps
+    print(f"check prefill-vs-teacher-forced {RWKV_ARCH} bf16 max|logit "
+          f"diff|/max|logit|: B10 prefill {rel_kernel:.3e} (<= plain's + "
+          f"{limit:.3e}), plain-scan prefill {rel_plain:.3e}, sequential-"
+          f"scan prefill {rel_seq:.3e}; B10 against plain prefill "
+          f"{rel_kp:.3e} (<= {limit:.3e}, twice the plain against "
+          f"sequential-scan prefill's {rel_ps:.3e}: the same function in "
+          f"another f32 order)", flush=True)
+    if not (torch.isfinite(logits_pf).all() and rel_kp <= limit):
+        fail(f"{RWKV_ARCH} bf16: B10 prefill logits differ from the plain-"
+             f"scan prefill's by {rel_kp:.3e} of max |logit| > {limit:.3e}")
+    if not rel_kernel <= rel_plain + limit:
+        fail(f"{RWKV_ARCH} bf16: B10 prefill drifts {rel_kernel:.3e} from "
+             f"teacher-forced decode, more than the plain-scan prefill's "
+             f"{rel_plain:.3e} + {limit:.3e}")
+    del logits_plain, logits_seq
+
+    # Block by block: B10 and its plain version from the same bf16 input
+    # (the plain path's residual stream) differ by the rounding of y only;
+    # run apart, the two paths show how that grows with depth.
+    x_p = x_k = layers.embed(params["embed"], prompts).to(
+        transformer._dtype(cfg))
+    same, apart = [], []
+    for i in range(cfg.num_layers):
+        p_i = transformer._layer(params["layers"], i)
+        with plain_b10:
+            out_p = transformer._apply_block(p_i, cfg, x_p)[0]
+        same.append(rel_diff(transformer._apply_block(p_i, cfg, x_p)[0],
+                             out_p))
+        x_k = transformer._apply_block(p_i, cfg, x_k)[0]
+        apart.append(rel_diff(x_k, out_p))
+        x_p = out_p
+    del x_p, x_k, out_p, p_i
+    depths = [d for d in (1, 2, 4, 8, 16, 32) if d <= cfg.num_layers]
+    print(f"check rwkv layers {RWKV_ARCH} bf16 B10 against plain block "
+          f"output, max|diff|/max|output|: from the same input, worst "
+          f"{max(same):.3e} (<= {RWKV_LAYER_TOL:.3e}) at layer "
+          f"{same.index(max(same)) + 1}; run apart, after layers "
+          f"{depths}: {[f'{apart[d - 1]:.3e}' for d in depths]}",
+          flush=True)
+    if not max(same) <= RWKV_LAYER_TOL:
+        fail(f"{RWKV_ARCH} bf16: a block's output through B10 differs from "
+             f"the plain version's from the same input by {max(same):.3e} "
+             f"> {RWKV_LAYER_TOL:.3e} of max |output|")
+
+    # one full-width bf16 decode step under the profiler
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok, state = serve_step(params, state, tok)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    busy, n_dev = device_profile(prof)
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile serve {RWKV_ARCH} bf16 decode step (batch "
+          f"{SERVE_BATCH}, token {SERVE_PROMPT + SERVE_GEN + 1}): wall_ms="
+          f"{prof_ms:.3f} device_busy_ms={busy_ms:.3f} busy_share="
+          f"{busy_ms / prof_ms:.4f} device_events={n_dev} top="
+          f"{[(n, round(v, 4)) for n, v in top]} (reported, not gated)",
+          flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # -- 11c. the same model in f32: 128 prompt tokens (B10) and a ragged
+    # 120 (the sequential scan), each against teacher-forced decode -----
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = transformer.init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(0), device=dev)
+    p32 = prompts[:, :RWKV_F32_PROMPT].contiguous()
+    pf = {}
+    for n_tok, b10 in ((RWKV_F32_PROMPT, cfg.num_layers), (RWKV_RAGGED, 0)):
+        reset_counts()
+        t0 = time.perf_counter()
+        tok_pf = steps.make_prefill_step(cfg32)(params32,
+                                                {"tokens": p32[:, :n_tok]})
+        torch.cuda.synchronize()
+        pf_ms = 1e3 * (time.perf_counter() - t0)
+        lg = transformer.forward(params32, cfg32, {"tokens": p32[:, :n_tok]},
+                                 last_only=True)[0][:, 0]
+        counts_only(f"rwkv f32 prefill {n_tok} tokens", read_counts(),
+                    2 * b10)
+        pf[n_tok] = (tok_pf, lg, pf_ms)
+    state32 = transformer.init_decode(cfg32, SERVE_BATCH, RWKV_F32_PROMPT,
+                                      device=dev)
+    step32 = steps.make_serve_step(cfg32)
+    reset_counts()
+    t0 = time.perf_counter()
+    for t in range(RWKV_F32_PROMPT):
+        if t + 1 in pf:
+            lg_tf = transformer.decode_step(params32, cfg32, state32,
+                                            p32[:, t])[0]
+            tok_pf, lg_pf, pf_ms = pf[t + 1]
+            rel = rel_diff(lg_pf, lg_tf)
+            tok_tf = torch.argmax(lg_tf, dim=-1).to(torch.int32)
+            via = "B10" if t + 1 == RWKV_F32_PROMPT else "sequential scan"
+            if not (rel <= 1e-4 and torch.equal(tok_pf, tok_tf)):
+                fail(f"{RWKV_ARCH} f32 prompt={t + 1}: prefill ({via}) "
+                     f"against teacher-forced decode {rel:.3e} of max "
+                     f"|logit| (<= 1e-4), tokens {tok_pf.tolist()} against "
+                     f"{tok_tf.tolist()}")
+            print(f"check prefill-vs-teacher-forced {RWKV_ARCH} f32 prompt="
+                  f"{t + 1} prefill via {via} max|logit diff|/max|logit|="
+                  f"{rel:.3e} (<= 1e-4) tokens equal {tok_pf.tolist()} "
+                  f"prefill_ms={pf_ms:.3f}", flush=True)
+        _, state32 = step32(params32, state32, p32[:, t])
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    counts_only("rwkv f32 decode", read_counts(), 0)
+    print(f"path serve {RWKV_ARCH} f32 teacher-forced {RWKV_F32_PROMPT} "
+          f"steps in {tf_s:.2f}s", flush=True)
+    del params32, state32
+    torch.cuda.empty_cache()
+
+    # -- 11d. the card against the port's CPU run, smoke width, f32 -------
+    argv = ["--arch", RWKV_ARCH, "--batch", "4", "--prompt-len", "32",
+            "--gen", "16"]
+    reset_counts()
+    out_card = serve.main(argv + ["--device", "cuda"])
+    counts_only("serve.main rwkv", read_counts(), 0)
+    out_cpu = serve.main(argv + ["--device", "cpu"])
+    smoke = get_smoke_arch(RWKV_ARCH)
+    p_card, pr_card = serve.init_inputs(smoke, 4, 32, dev)
+    p_cpu, pr_cpu = serve.init_inputs(smoke, 4, 32, "cpu")
+    reset_counts()
+    lg_card = transformer.forward(p_card, smoke, {"tokens": pr_card},
+                                  last_only=True)[0]
+    counts_only("serve rwkv smoke prefill", read_counts(), smoke.num_layers)
+    lg_cpu = transformer.forward(p_cpu, smoke, {"tokens": pr_cpu},
+                                 last_only=True)[0]
+    rel = rel_diff(lg_card.cpu(), lg_cpu)
+    same = np.array_equal(np.asarray(out_card), np.asarray(out_cpu))
+    if not (rel <= 1e-4 and same):
+        fail(f"serve {RWKV_ARCH} smoke: card against CPU prefill logits "
+             f"{rel:.3e} of max |logit| (<= 1e-4), tokens equal {same}")
+    print(f"path serve {RWKV_ARCH} smoke ({smoke.num_layers} layers, "
+          f"d_model {smoke.d_model}) f32 card-vs-cpu prefill max|logit "
+          f"diff|/max|logit|={rel:.3e} (<= 1e-4, {smoke.num_layers} B10 "
+          f"launches) serve.main generated tokens equal "
+          f"({tuple(np.asarray(out_cpu).shape)})", flush=True)
+    print(f"phase rwkv6 serving {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
 
 
 def tree_leaves(tree) -> list:
@@ -951,7 +1324,8 @@ def main() -> None:
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
     totals = {name: 0 for name in read_counts()}
     dense_only = {"sparse_mix": 0, "cluster_mix": 0, "robust_agg": 0,
-                  "consensus_mix": 0, "flash_attention": 0}
+                  "consensus_mix": 0, "flash_attention": 0,
+                  "rwkv6_scan": 0}
 
     def add(counts):
         for name, c in counts.items():
@@ -1741,6 +2115,7 @@ def main() -> None:
           f"faster; reported, not gated): {ranking}", flush=True)
 
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
+    rwkv_serving(dev, rows, record, add, expect_counts)
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",
@@ -1760,7 +2135,9 @@ def main() -> None:
                "robust_agg": ("src/repro_torch/csrc/robust_agg.cu",
                               "src/repro/kernels/robust_agg.py:90"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:86")}
+                                   "src/repro/kernels/flash_attention.py:86"),
+               "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                              "src/repro/kernels/rwkv6_scan.py:85")}
     table = []
     for name, (source, replaces) in sources.items():
         row = rows[name]
@@ -1774,7 +2151,8 @@ def main() -> None:
                       "plain_graph_ms": row["plain_graph_ms"],
                       "library_graph_ms": row["library_graph_ms"],
                       **{key: row[key] for key in ("bytes_once",
-                                                   "bytes_gather", "library")
+                                                   "bytes_gather", "library",
+                                                   "flop")
                          if key in row}})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

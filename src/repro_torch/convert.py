@@ -17,7 +17,7 @@ from repro_torch.core.cdfl import FedState
 from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
 from repro_torch.hierarchy.mixing import HierEta
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, rwkv, transformer
 from repro_torch.optim.adam import FlatAdamState
 
 
@@ -45,18 +45,23 @@ def transformer_params_from_numpy(tree: dict, device=None) -> dict:
 
 
 def decode_state_from_numpy(state, device=None) -> transformer.DecodeState:
-    """A JAX package ``DecodeState`` of a dense stack (read by field name:
-    ``states.k/v/length`` stacked along L, ``pos``) -> the port's."""
+    """A JAX package ``DecodeState`` of a homogeneous stack (read by field
+    name, stacked along L: ``states.k/v/length`` of a dense stack,
+    ``states.s/x_prev`` of an rwkv stack; ``pos``) -> the port's, each
+    array in its own dtype."""
     dev = resolve_device(device)
-    caches = state.states
+    st = state.states
+    if hasattr(st, "x_prev"):
+        states = rwkv.RwkvState(s=tensor_from_numpy(st.s, dev),
+                                x_prev=tensor_from_numpy(st.x_prev, dev))
+    else:
+        states = attention.KVCache(
+            k=tensor_from_numpy(st.k, dev), v=tensor_from_numpy(st.v, dev),
+            length=torch.tensor(np.asarray(st.length), dtype=torch.int32,
+                                device=dev))
     return transformer.DecodeState(
-        states=attention.KVCache(
-            k=tensor_from_numpy(caches.k, dev),
-            v=tensor_from_numpy(caches.v, dev),
-            length=torch.tensor(np.asarray(caches.length), dtype=torch.int32,
-                                device=dev)),
-        pos=torch.tensor(np.asarray(state.pos), dtype=torch.int32,
-                         device=dev))
+        states=states, pos=torch.tensor(np.asarray(state.pos),
+                                        dtype=torch.int32, device=dev))
 
 
 def params_from_numpy(tree: dict, device=None):

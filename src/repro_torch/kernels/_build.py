@@ -58,6 +58,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _I, _I, _I, _F, _P],
     },
+    "rwkv6_scan": {
+        "repro_rwkv6_scan_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _P],
+        "repro_rwkv6_scan_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

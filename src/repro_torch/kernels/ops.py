@@ -1,4 +1,4 @@
-"""Public entry points of the B1-B9 kernels.
+"""Public entry points of the B1-B10 kernels.
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
@@ -15,6 +15,7 @@ from repro_torch.kernels import consensus_mix as _cm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import robust_agg as _ra
+from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import sparse_mix as _sm
 
 
@@ -132,3 +133,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                    v.contiguous(), causal=causal,
                                    window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None, chunk: int = 16):
+    """Chunked RWKV6 wkv scan (B10): r/k/v/w (B, S, H, D), u (H, D), s0
+    (B, H, D, D) or None (zeros) -> (y (B, S, H, D) f32, final state
+    (B, H, D, D) f32). w, u and s0 are taken in f32, r/k/v in their own
+    dtype; S a multiple of ``chunk``."""
+    if _on_cuda(r):
+        f32 = [None if t is None else t.float().contiguous()
+               for t in (w, u, s0)]
+        return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                              *f32, chunk=chunk)
+    return ref.rwkv6_scan(r, k, v, w, u, s0, chunk)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the B1-B9 kernels: the CPU path of
+"""Plain PyTorch versions of the B1-B10 kernels: the CPU path of
 :mod:`repro_torch.kernels.ops` and the yardstick the CUDA kernels are held
 against on the card. Device-agnostic tensor code."""
 from __future__ import annotations
@@ -130,3 +130,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attention, :func:`repro_torch.models.attention.attend`."""
     from repro_torch.models import attention
     return attention.attend(q, k, v, causal=causal, window=window)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               s0: torch.Tensor | None = None,
+               chunk: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked RWKV6 wkv scan, the function of the JAX model's
+    ``rwkv.chunked``: r/k/v/w (B, S, H, D), u (H, D), s0 (B, H, D, D) or
+    None (zeros) -> (y (B, S, H, D) f32, final state (B, H, D, D) f32),
+    everything in f32.
+
+    Per chunk of ``chunk`` tokens, with L_t = cumsum(log w) inside the
+    chunk: the strictly causal pairwise scores
+    ``sum_d r_td k_id e^{L_{t-1,d} - L_{i,d}}`` (every exponent <= 0, the
+    TPU kernel's form), the ``u`` bonus on the diagonal, the carry-in
+    term ``(r e^{L_{t-1}}) @ S`` and the per-chunk summaries ``d_c =
+    e^{L_C}``, ``u_c = (k e^{L_C - L})^T v``. A loop over the chunks takes
+    the place of the reference's associative scan for the chunk-start
+    states: the same sums in another f32 order."""
+    b, seq, h, d = r.shape
+    if seq % chunk:
+        raise ValueError(f"sequence length {seq} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc = seq // chunk
+
+    def rs(x):
+        return x.float().reshape(b, nc, chunk, h, d)
+
+    rc, kc, vc, wc = rs(r), rs(k), rs(v), rs(w)
+    logw = torch.log(torch.clamp(wc, min=1e-38))
+    el = torch.cumsum(logw, dim=2)                       # L_t     (b,n,C,h,d)
+    el_prev = el - logw                                  # L_{t-1}
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=r.device), -1)[:, :, None, None]
+    expo = el_prev[:, :, :, None] - el[:, :, None, :]    # (b,n,t,i,h,d)
+    dec = torch.exp(torch.where(causal, expo, -torch.inf))
+    scores = torch.einsum("bnthd,bntihd->bnhti", rc,
+                          dec * kc[:, :, None])
+    del expo, dec
+    diag = torch.einsum("bnthd,hd,bnthd->bnth", rc, u.float(), kc)
+    y = torch.einsum("bnhti,bnihd->bnthd", scores, vc) + diag[..., None] * vc
+
+    k_dec = kc * torch.exp(el[:, :, -1:] - el)
+    u_c = torch.einsum("bnihd,bnihe->bnhde", k_dec, vc)  # (b,n,h,d,d)
+    d_c = torch.exp(el[:, :, -1])                        # (b,n,h,d)
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device) \
+        if s0 is None else s0.float()
+    starts = []
+    for c in range(nc):
+        starts.append(s)
+        s = d_c[:, c, :, :, None] * s + u_c[:, c]
+    s_start = torch.stack(starts, dim=1)
+    y = y + torch.einsum("bnthd,bnhde->bnthe", rc * torch.exp(el_prev),
+                         s_start)
+    return y.reshape(b, seq, h, d), s

@@ -1,10 +1,16 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-autoregressively with the KV caches — the runnable counterpart of the
-decode dry-run shapes, at reduced size. Params and prompts are drawn from
-a CPU ``torch.Generator`` seeded with 0, then moved to the device.
+autoregressively with the KV caches or rwkv states — the runnable
+counterpart of the decode dry-run shapes, at reduced size. Params and
+prompts are drawn from a CPU ``torch.Generator`` seeded with 0, then
+moved to the device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+
+``--arch rwkv6-7b`` serves the ssm family. As in the JAX package, the
+prompt is teacher-forced through the decode step, so this driver runs no
+kernel: the prefill step (``steps.make_prefill_step``) is where B9 and
+B10 run.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""Decoder-only model assembled from a ModelConfig: the dense family
-(llama/qwen-style homogeneous attention stacks) of the JAX package's
-``repro.models.transformer``.
+"""Decoder-only model assembled from a ModelConfig: the homogeneous stacks
+of the JAX package's ``repro.models.transformer``, the dense family
+(llama/qwen-style attention) and the ssm family (rwkv6 blocks).
 
 Layer params are stacked along a leading L axis, as the JAX package stacks
 them for its ``lax.scan``; a Python loop over the layers takes the scan's
-place. MoE, SSM (rwkv6), hybrid (zamba2) and the vision and audio
-modalities are not ported yet: every entry point refuses them with the
-ROADMAP item that ports them (:data:`repro_torch.registry.MODEL_NOT_PORTED`).
+place. MoE, hybrid (zamba2) and the vision and audio modalities are not
+ported yet: every entry point refuses them with the ROADMAP item that
+ports them (:data:`repro_torch.registry.MODEL_NOT_PORTED`).
 
 API:
   init_params(cfg, generator, device, dtype) -> params dict
@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rwkv
 from repro_torch.registry import check_model_ported
 
 
@@ -38,22 +38,39 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {name: _stack([t[name] for t in trees]) for name in trees[0]}
-    return torch.stack(trees)
+def _empty_stack(tree, n: int):
+    """Uninitialised tensors of ``tree``'s leaves with a leading axis of
+    ``n``."""
+    if isinstance(tree, dict):
+        return {name: _empty_stack(sub, n) for name, sub in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _put(stacked, i: int, tree) -> None:
+    """Write ``tree``'s leaves into slot ``i`` of ``stacked``."""
+    if isinstance(tree, dict):
+        for name, sub in tree.items():
+            _put(stacked[name], i, sub)
+    else:
+        stacked[i] = tree
 
 
 # --------------------------------------------------------------------------
 # Block init / apply
 # --------------------------------------------------------------------------
 
+def _kind(cfg: ModelConfig) -> str:
+    """The block kind of a homogeneous stack: ``attn`` or ``rwkv``."""
+    return cfg.blocks()[0]
+
+
 def _block_init(generator, cfg: ModelConfig, dtype, device):
     norm_init, _ = layers.make_norm(cfg.norm)
     mlp_init, _ = layers.make_mlp(cfg.act)
+    mix = rwkv if _kind(cfg) == "rwkv" else attention
     return {"norm1": norm_init(cfg.d_model, dtype, device),
             "norm2": norm_init(cfg.d_model, dtype, device),
-            "mix": attention.init(generator, cfg, dtype, device),
+            "mix": mix.init(generator, cfg, dtype, device),
             "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)}
 
 
@@ -63,7 +80,9 @@ def _apply_block(p, cfg: ModelConfig, x, *, state=None, decode: bool = False,
     _, norm_fn = layers.make_norm(cfg.norm)
     _, mlp_fn = layers.make_mlp(cfg.act)
     h = norm_fn(p["norm1"], x)
-    if decode:
+    if _kind(cfg) == "rwkv":
+        mix_out, new_state = rwkv.forward(p["mix"], cfg, h, state)
+    elif decode:
         mix_out, new_state = attention.decode_step(p["mix"], cfg, h, state,
                                                    window_override)
     else:
@@ -99,8 +118,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         params["lm_head"] = {
             "table": layers._dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                         scale=0.02, dtype=dtype, device=dev)}
-    params["layers"] = _stack([_block_init(gen, cfg, dtype, dev)
-                               for _ in range(cfg.num_layers)])
+    # drawn layer by layer into the stacked tensors: one copy of the
+    # weights at a time (rwkv6-7b in f32 is 35.5 GB)
+    first = _block_init(gen, cfg, dtype, dev)
+    params["layers"] = _empty_stack(first, cfg.num_layers)
+    _put(params["layers"], 0, first)
+    del first
+    for i in range(1, cfg.num_layers):
+        _put(params["layers"], i, _block_init(gen, cfg, dtype, dev))
     return params
 
 
@@ -114,7 +139,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
     """batch: {"tokens": (B, S) int}. Returns (logits (B, S_out, V) f32,
     aux scalar). last_only: unembed only the final position (prefill
     serving — avoids the (B,S,V) logits). Inference only: the attention
-    kernel has no backward."""
+    and wkv kernels have no backward."""
     check_model_ported(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(_dtype(cfg))
@@ -152,21 +177,27 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
 # --------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    states: attention.KVCache   # per-layer caches stacked along L
+    # per-layer mix states stacked along L: KV caches (attn) or wkv
+    # states (rwkv)
+    states: attention.KVCache | rwkv.RwkvState
     pos: torch.Tensor
 
 
 def init_decode(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 window_override=None, device=None) -> DecodeState:
-    """Empty KV caches for ``batch`` sequences of up to ``max_len`` tokens
-    (a ring buffer of the window's size when a window applies)."""
+    """Empty per-layer states for ``batch`` sequences of up to ``max_len``
+    tokens: KV caches (a ring buffer of the window's size when a window
+    applies) or zero rwkv states (``max_len`` unused: O(1) in length)."""
     check_model_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     window = window_override if window_override is not None \
         else cfg.sliding_window
-    one = attention.init_cache(cfg, batch, max_len, dtype, window, dev)
-    states = attention.KVCache(
+    if _kind(cfg) == "rwkv":
+        one = rwkv.init_state(cfg, batch, dev)
+    else:
+        one = attention.init_cache(cfg, batch, max_len, dtype, window, dev)
+    states = type(one)(
         *(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))
     return DecodeState(states=states,
                        pos=torch.zeros((), dtype=torch.int32, device=dev))
@@ -176,21 +207,25 @@ def init_decode(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 def decode_step(params, cfg: ModelConfig, state: DecodeState,
                 tokens: torch.Tensor, *, window_override=None):
     """tokens: (B,) int — one new token per sequence.
-    Returns (logits (B, V) f32, new DecodeState). The caches of ``state``
-    are updated in place (see :func:`attention.decode_step`)."""
+    Returns (logits (B, V) f32, new DecodeState). KV caches of ``state``
+    are updated in place (see :func:`attention.decode_step`); rwkv states
+    are not: the new state holds new tensors, as in the JAX package."""
     check_model_ported(cfg)
     x = layers.embed(params["embed"], tokens[:, None]).to(_dtype(cfg))
-    lengths = []
+    kind = type(state.states)
+    news = []
     for i in range(cfg.num_layers):
-        cache = attention.KVCache(*(t[i] for t in state.states))
         x, new = _apply_block(_layer(params["layers"], i), cfg, x,
-                              state=cache, decode=True,
-                              window_override=window_override)
-        lengths.append(new.length)
+                              state=kind(*(t[i] for t in state.states)),
+                              decode=True, window_override=window_override)
+        news.append(new)
     _, norm_fn = layers.make_norm(cfg.norm)
     x = norm_fn(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = layers.unembed(head, x)[:, 0, :]
-    states = attention.KVCache(state.states.k, state.states.v,
-                               torch.stack(lengths))
+    if kind is rwkv.RwkvState:
+        states = rwkv.RwkvState(*(torch.stack(t) for t in zip(*news)))
+    else:
+        states = attention.KVCache(state.states.k, state.states.v,
+                                   torch.stack([n.length for n in news]))
     return logits, DecodeState(states=states, pos=state.pos + 1)

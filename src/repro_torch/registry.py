@@ -101,17 +101,15 @@ NOT_PORTED = {
 }
 
 _MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"
-_RWKV = "ROADMAP queue A item 23b (rwkv6 serving through kernel B10)"
 
 # (ModelConfig field, value) -> the ROADMAP item that ports it; the
-# transformer builds dense homogeneous attention stacks over text
+# transformer builds homogeneous attention (dense) and rwkv (ssm) stacks
+# over text
 MODEL_NOT_PORTED = {
     ("family", "moe"): _MOE,
-    ("family", "ssm"): _RWKV,
     ("family", "hybrid"): _MOE,
     ("family", "vlm"): _MOE,
     ("family", "audio"): _MOE,
-    ("block", "rwkv"): _RWKV,
     ("block", "mamba"): _MOE,
     ("block", "shared_attn"): _MOE,
     ("modality", "vision"): _MOE,

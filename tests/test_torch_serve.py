@@ -1,5 +1,7 @@
 """The port's serving steps and ``serve.main`` against the JAX package's,
-on the CPU in f32.
+on the CPU in f32, for the smoke qwen3-1.7b, its GQA variant and the
+smoke rwkv6-7b (whose 16-token prompt, a multiple of the chunk, runs the
+chunked wkv form in the prefill step).
 
 Same params (``repro.models.transformer.init_params`` through
 ``repro_torch.convert``) and the same prompt tokens on both sides:
@@ -30,9 +32,12 @@ from repro_torch.launch import serve, steps
 from repro_torch.models import transformer
 
 B, PROMPT, GEN = 2, 12, 6
+RWKV_PROMPT = 16     # a multiple of rwkv.CHUNK: the prefill runs chunked
 
 
 def _cfgs(name):
+    if name == "rwkv6-7b":
+        return jget_smoke_arch(name), get_smoke_arch(name)
     base = (jget_smoke_arch("qwen3-1.7b"), get_smoke_arch("qwen3-1.7b"))
     if name == "qwen3-1.7b":
         return base
@@ -40,12 +45,14 @@ def _cfgs(name):
                                      head_dim=128) for c in base)
 
 
-@pytest.fixture(scope="module", params=["qwen3-1.7b", "qwen3-gqa"])
+@pytest.fixture(scope="module", params=["qwen3-1.7b", "qwen3-gqa",
+                                        "rwkv6-7b"])
 def case(request):
     jcfg, tcfg = _cfgs(request.param)
     jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
+    prompt = RWKV_PROMPT if request.param == "rwkv6-7b" else PROMPT
     prompts = np.random.default_rng(5).integers(
-        0, jcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+        0, jcfg.vocab_size, (B, prompt)).astype(np.int32)
     jprefill = jax.jit(jsteps.make_prefill_step(jcfg))
     jserve_step = jax.jit(jsteps.make_serve_step(jcfg))
     # the reference's serving steps run under its serving mesh's axis
@@ -55,9 +62,9 @@ def case(request):
     with mesh:
         prefill = np.asarray(jprefill(jparams,
                                       {"tokens": jnp.asarray(prompts)}))
-        state = jtransformer.init_decode(jcfg, B, PROMPT + GEN)
+        state = jtransformer.init_decode(jcfg, B, prompt + GEN)
         forced = []
-        for t in range(PROMPT):
+        for t in range(prompt):
             tok, state = jserve_step(jparams, state,
                                      jnp.asarray(prompts[:, t]))
             forced.append(np.asarray(tok))
@@ -65,7 +72,7 @@ def case(request):
         for _ in range(GEN):
             generated.append(np.asarray(tok))
             tok, state = jserve_step(jparams, state, tok)
-    return dict(tcfg=tcfg, prompts=prompts,
+    return dict(tcfg=tcfg, prompts=prompts, prompt=prompt,
                 params=convert.transformer_params_from_numpy(jparams, "cpu"),
                 prefill=prefill, forced=np.stack(forced, axis=1),
                 generated=np.stack(generated, axis=1))
@@ -80,9 +87,10 @@ def test_prefill_step_matches_reference(case):
 
 def test_serve_step_teacher_forced_matches_reference(case):
     step = steps.make_serve_step(case["tcfg"])
-    state = transformer.init_decode(case["tcfg"], B, PROMPT, device="cpu")
+    state = transformer.init_decode(case["tcfg"], B, case["prompt"],
+                                    device="cpu")
     forced = []
-    for t in range(PROMPT):
+    for t in range(case["prompt"]):
         tok, state = step(case["params"], state,
                           torch.tensor(case["prompts"][:, t]))
         assert tok.dtype == torch.int32
@@ -107,21 +115,23 @@ def _printed(capsys) -> np.ndarray:
     return np.array([[int(t) for t in r.split(",")] for r in rows])
 
 
-@pytest.mark.parametrize("window", [None, 5])
-def test_serve_main_prints_the_reference_generations(window, capsys,
-                                                     monkeypatch):
-    argv = ["--arch", "qwen3-1.7b", "--batch", str(B), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN)]
+@pytest.mark.parametrize("arch,prompt,window", [
+    ("qwen3-1.7b", PROMPT, None), ("qwen3-1.7b", PROMPT, 5),
+    ("rwkv6-7b", RWKV_PROMPT, None)], ids=["None", "5", "rwkv6-7b"])
+def test_serve_main_prints_the_reference_generations(arch, prompt, window,
+                                                     capsys, monkeypatch):
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len",
+            str(prompt), "--gen", str(GEN)]
     if window is not None:
         argv += ["--window", str(window)]
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
     want = _printed(capsys)
     # the reference's own draws: PRNGKey(0) for params and prompts
-    jcfg = jget_smoke_arch("qwen3-1.7b")
+    jcfg = jget_smoke_arch(arch)
     rng = jax.random.PRNGKey(0)
     jparams = jtransformer.init_params(rng, jcfg)
-    prompts = jax.random.randint(rng, (B, PROMPT), 0, jcfg.vocab_size)
+    prompts = jax.random.randint(rng, (B, prompt), 0, jcfg.vocab_size)
     monkeypatch.setattr(serve, "init_inputs", lambda cfg, b, p, dev: (
         convert.transformer_params_from_numpy(jparams, dev),
         torch.tensor(np.asarray(prompts), dtype=torch.int32)))

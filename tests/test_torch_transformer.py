@@ -1,16 +1,21 @@
-"""The port's dense transformer against the JAX package's, on the CPU.
+"""The port's transformer against the JAX package's, on the CPU.
 
-Two configs: ``reduced(qwen3-1.7b)`` (4 heads over 4 kv heads, head dim
-64, qk-norm) and its GQA variant (4 heads over 2, head dim 128). Params
-come from ``repro.models.transformer.init_params`` and cross through
-``repro_torch.convert``; tokens are made with numpy. Layers, attention
-(forward and one decode step), the model forward (full and
-``last_only``), ``loss_fn``, 16 teacher-forced decode steps and the
-sliding-window ring buffer (tests/test_models.py's recipe) are held to
-tests/test_models.py's tolerances (2e-4 absolute, 2e-3 relative) in f32,
-and one bf16 forward to 2e-2. JAX results are computed once per module.
+Three configs: ``reduced(qwen3-1.7b)`` (4 heads over 4 kv heads, head dim
+64, qk-norm), its GQA variant (4 heads over 2, head dim 128) and
+``reduced(rwkv6-7b)`` (the ssm family: 2 rwkv blocks of 4 heads of 64,
+d_model 256). Params come from ``repro.models.transformer.init_params``
+and cross through ``repro_torch.convert``; tokens are made with numpy. The
+model forward (full and ``last_only``; 16 tokens, so rwkv runs its chunked
+form), ``loss_fn``, 16 teacher-forced decode steps and the decode state's
+crossing apply to all three; layers, attention (forward and one decode
+step) and the sliding-window ring buffer (tests/test_models.py's recipe)
+to the dense two. All are held to tests/test_models.py's tolerances (2e-4
+absolute, 2e-3 relative) in f32, and one bf16 forward of each family
+(plus 4 rwkv decode steps) to 2e-2. JAX results are computed once per
+module.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +41,13 @@ def _cfgs(mod_reduced, mod_get_arch):
     base = mod_reduced(mod_get_arch("qwen3-1.7b"))
     return {"qwen3": base,
             "qwen3-gqa": dataclasses.replace(base, num_heads=4,
-                                             num_kv_heads=2, head_dim=128)}
+                                             num_kv_heads=2, head_dim=128),
+            "rwkv6": mod_reduced(mod_get_arch("rwkv6-7b"))}
 
 
 JCFG = _cfgs(jreduced, jget_arch)
 TCFG = _cfgs(reduced, get_arch)
+DENSE = ["qwen3", "qwen3-gqa"]
 
 
 def _t(x):
@@ -53,10 +60,11 @@ def _close(got, want, atol=ATOL, rtol=RTOL):
                                rtol=rtol)
 
 
-@pytest.fixture(scope="module", params=sorted(JCFG))
-def case(request):
-    """Params, tokens and every JAX result of one config."""
-    jcfg, tcfg = JCFG[request.param], TCFG[request.param]
+@functools.cache
+def _case(name):
+    """Params, tokens and every JAX result of one config (the windowed
+    ones for the dense configs only)."""
+    jcfg, tcfg = JCFG[name], TCFG[name]
     jparams = jtransformer.init_params(jax.random.PRNGKey(0), jcfg)
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
@@ -82,18 +90,29 @@ def case(request):
 
     jt = jnp.asarray(tokens)
     dec, state = decode(tokens)
-    win_dec, _ = decode(win_tokens, WIN)
-    return dict(
-        name=request.param, jcfg=jcfg, tcfg=tcfg, jparams=jparams,
+    out = dict(
+        name=name, jcfg=jcfg, tcfg=tcfg, jparams=jparams,
         params=convert.transformer_params_from_numpy(jparams, "cpu"),
         tokens=tokens, win_tokens=win_tokens,
         logits=np.asarray(fwd(jparams, jt)),
         last=np.asarray(fwd(jparams, jt, last_only=True)),
         loss=float(loss(jparams, jt)),
-        decode=dec, state=state,
-        win_logits=np.asarray(fwd(jparams, jnp.asarray(win_tokens),
-                                  window_override=WIN)),
-        win_decode=win_dec)
+        decode=dec, state=state)
+    if name in DENSE:
+        out.update(win_logits=np.asarray(fwd(jparams, jnp.asarray(win_tokens),
+                                             window_override=WIN)),
+                   win_decode=decode(win_tokens, WIN)[0])
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(JCFG))
+def case(request):
+    return _case(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def dense_case(request):
+    return _case(request.param)
 
 
 def test_params_cross_key_for_key(case):
@@ -105,7 +124,7 @@ def test_params_cross_key_for_key(case):
             node = node[key.key]
         assert tuple(node.shape) == leaf.shape
         np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
-    assert case["params"]["layers"]["mix"]["wq"].shape[0] == \
+    assert case["params"]["layers"]["norm1"]["scale"].shape[0] == \
         case["tcfg"].num_layers
 
 
@@ -123,7 +142,8 @@ def test_init_params_shapes_match_reference(case):
         sum(leaf.size for leaf in jax.tree.leaves(case["jparams"]))
 
 
-def test_layers_match_reference(case):
+def test_layers_match_reference(dense_case):
+    case = dense_case
     rng = np.random.default_rng(2)
     x = rng.normal(size=(B, S, 256)).astype(np.float32)
     scale = rng.normal(size=(256,)).astype(np.float32)
@@ -155,7 +175,8 @@ def test_layers_match_reference(case):
            jlayers.unembed(table, x), 1e-5, 1e-5)
 
 
-def test_attention_forward_and_decode_step_match_reference(case):
+def test_attention_forward_and_decode_step_match_reference(dense_case):
+    case = dense_case
     jcfg, tcfg = case["jcfg"], case["tcfg"]
     jp = jax.tree.map(lambda l: l[0], case["jparams"]["layers"]["mix"])
     tp = convert.transformer_params_from_numpy(jp, "cpu")
@@ -211,15 +232,22 @@ def test_decode_16_tokens_matches_reference_and_forward(case):
     _close(dec, case["decode"])
     _close(dec, case["logits"])
     assert int(state.pos) == S
-    assert state.states.length.tolist() == [S] * case["tcfg"].num_layers
-    _close(state.states.k, case["state"].states.k)
-    _close(state.states.v, case["state"].states.v)
+    if case["name"] in DENSE:
+        assert state.states.length.tolist() == [S] * case["tcfg"].num_layers
+    assert state.states._fields == case["state"].states._fields
+    for got, want in zip(state.states, case["state"].states):
+        _close(got, want)
 
 
 def test_decode_state_crosses_from_numpy(case):
     state = convert.decode_state_from_numpy(case["state"], "cpu")
-    assert state.states.k.shape == case["state"].states.k.shape
-    assert state.states.length.dtype == torch.int32
+    assert state.states._fields == case["state"].states._fields
+    for got, want in zip(state.states, case["state"].states):
+        assert tuple(got.shape) == want.shape
+    if case["name"] in DENSE:
+        assert state.states.length.dtype == torch.int32
+    else:
+        assert state.states.s.dtype == torch.float32
     assert int(state.pos) == S
     # one more token from the crossed state equals one more in JAX
     nxt = case["tokens"][:, 0]
@@ -230,9 +258,10 @@ def test_decode_state_crosses_from_numpy(case):
     _close(lg, want)
 
 
-def test_sliding_window_ring_buffer_matches_reference(case):
+def test_sliding_window_ring_buffer_matches_reference(dense_case):
     """tests/test_models.py::test_sliding_window_ring_buffer_decode's
     recipe: window 4, 24 tokens, the cache sized to the window."""
+    case = dense_case
     tok = _t(case["win_tokens"])
     logits, _ = transformer.forward(case["params"], case["tcfg"],
                                     {"tokens": tok}, window_override=WIN)
@@ -263,3 +292,31 @@ def test_bf16_forward_matches_reference():
         p, jcfg, {"tokens": t}))(jparams, jnp.asarray(tokens))
     got, _ = transformer.forward(params, tcfg, {"tokens": _t(tokens)})
     _close(got, want, 2e-2, 2e-2)
+
+
+def test_bf16_rwkv_forward_and_decode_match_reference():
+    """The ssm family in bf16: a chunked forward of 16 tokens, then 4
+    decode steps from the zero state; r/k/v and the layer outputs in bf16,
+    the decays and the wkv state in f32 on both sides."""
+    jcfg = dataclasses.replace(JCFG["rwkv6"], dtype="bfloat16")
+    tcfg = dataclasses.replace(TCFG["rwkv6"], dtype="bfloat16")
+    jparams = jtransformer.init_params(jax.random.PRNGKey(3), jcfg)
+    params = convert.transformer_params_from_numpy(jparams, "cpu")
+    assert params["layers"]["mix"]["wr"].dtype == torch.bfloat16
+    tokens = np.random.default_rng(5).integers(
+        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    want, _ = jax.jit(lambda p, t: jtransformer.forward(
+        p, jcfg, {"tokens": t}))(jparams, jnp.asarray(tokens))
+    got, _ = transformer.forward(params, tcfg, {"tokens": _t(tokens)})
+    _close(got, want, 2e-2, 2e-2)
+    step = jax.jit(lambda p, s, t: jtransformer.decode_step(p, jcfg, s, t))
+    jstate = jtransformer.init_decode(jcfg, B, 4)
+    state = transformer.init_decode(tcfg, B, 4, device="cpu")
+    for t in range(4):
+        want, jstate = step(jparams, jstate, jnp.asarray(tokens[:, t]))
+        got, state = transformer.decode_step(params, tcfg, state,
+                                             _t(tokens[:, t]))
+        _close(got, want, 2e-2, 2e-2)
+    assert state.states.s.dtype == torch.float32
+    assert state.states.x_prev.dtype == torch.bfloat16 == \
+        convert.decode_state_from_numpy(jstate, "cpu").states.x_prev.dtype
