@@ -32,13 +32,15 @@ and the paper MLP's (187, 128) rows with N=2), B8 driven through
 23,560), dpsgd on the K=1024 fleet's stacks (sparse and hierarchical),
 each checked against the CPU, and the paper's Tables 1-4 MLP comparison
 of cdfl, cfa, cdfa_m and dpsgd over 60 rounds (rounds to 80% test
-accuracy per station, reported, not gated); then LLM serving: B9 held
-against its plain version (tests/test_kernels.py's sweep, ragged
-lengths, rows with no live key, and the path's shapes up to qwen3's
-prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4 requests of
-512 prompt tokens through the prefill step, the same prompts teacher-
-forced through the serve step, 16 generated tokens; prefill logits held
-against the decode's) and in f32 (128 prompt tokens, with and without a
+accuracy per station, reported, not gated); then LLM serving: the count
+of tensor-core (HGMMA) instructions in B9's library, B9 held against its
+plain version (tests/test_kernels.py's sweep, windows, cross attention,
+ragged lengths and rows with no live key, each in f32 and bf16; the bf16
+kernel's tile edges at every head dim; and the path's shapes up to
+qwen3's prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4
+requests of 512 prompt tokens through the prefill step, the same prompts
+teacher-forced through the serve step, 16 generated tokens; prefill
+logits held against the decode's) and in f32 (128 prompt tokens, with and without a
 64-token window), ``serve.main`` at smoke width on the card against the
 CPU (and a GQA variant), and one decode step under the profiler; then
 the rwkv6 slice: B10 held against its plain version (tests/test_kernels.py's
@@ -286,20 +288,36 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
     card against the port's CPU run of ``serve.main``; one decode step
     under the profiler."""
     from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     from repro_torch.launch import serve, steps
     from repro_torch.models import transformer
 
     gen = torch.Generator(device=dev).manual_seed(16)
 
     # -- 9a. B9 against its plain version ---------------------------------
-    # bf16: the plain version computed in f32 from the same bf16 inputs
-    # differs from B9 (which keeps p and the accumulator in f32) by the
-    # output's rounding: one bf16 ulp where |value| >= 2**-7, whose ulp
-    # (>= 6.1e-5) dwarfs the f32 summation-order noise; below that, one
-    # ulp plus B9_TOL, the f32 gate. The 2e-2 gate against the plain
-    # version in bf16 (which rounds p to bf16 first) stays as well.
+    # bf16 runs on the tensor cores: its products take p as two bf16 terms,
+    # p_hi + p_lo, which carry about 16 bits of p into an f32 accumulator.
+    # So the plain version computed in f32 from the same bf16 inputs
+    # differs from B9 by the output's rounding: one bf16 ulp where |value|
+    # >= 2**-7, whose ulp (>= 6.1e-5) dwarfs the f32 summation-order noise;
+    # below that, one ulp plus B9_TOL, the f32 gate. The 2e-2 gate against
+    # the plain version in bf16 (which rounds p to bf16 first) stays as
+    # well. First, the proof that the bf16 kernel was compiled to tensor-
+    # core instructions: HGMMA is Hopper's wgmma in the machine code.
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.BUILD_DIR / "libflash_attention.so")],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    print(f"sass flash_attention HGMMA instructions={hgmma}", flush=True)
+    if hgmma == 0:
+        fail("libflash_attention.so has no HGMMA instruction: bf16 B9 does "
+             "not run on the tensor cores")
+    worst_ulp = {"ulp": 0.0, "case": None}
+
     def check_b9(b, sq, sk, h, kv, d, dtype, causal=True, window=None):
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
@@ -334,6 +352,8 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
                      f"version by {err16:.3e} > 2e-2")
             more = (f"(f32 plain: max {worst:.3f} ulp where |value| >= 2**-7;"
                     f" bf16 plain: max |diff| {err16:.3e}, tol 2e-2)")
+            if worst > worst_ulp["ulp"]:
+                worst_ulp.update(ulp=worst, case=label)
         print(f"check flash_attention {label} max_abs_err={err:.3e} {more}",
               flush=True)
         row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
@@ -346,18 +366,32 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
                                 (1, 512, 512, 2, 2, 128)):  # wide head
         for dtype in (torch.float32, torch.bfloat16):
             check_b9(b, sq, sk, h, kv, d, dtype)
+    both = (torch.float32, torch.bfloat16)
     for window in (32, 64, 128):
-        check_b9(1, 256, 256, 2, 2, 64, torch.float32, window=window)
-    check_b9(1, 128, 256, 2, 2, 64, torch.float32, causal=False)
-    for dtype in (torch.float32, torch.bfloat16):               # ragged
+        for dtype in both:
+            check_b9(1, 256, 256, 2, 2, 64, dtype, window=window)
+    for dtype in both:
+        check_b9(1, 128, 256, 2, 2, 64, dtype, causal=False)
+    for dtype in both:                                          # ragged
         check_b9(1, 500, 500, 4, 2, 64, dtype)
     # rows 79.. have no live key: the uniform average of v, as attend
-    check_b9(1, 128, 64, 2, 1, 32, torch.float32, window=16)
-    # the path's shapes: f32 prefill of 128 tokens (and its window run),
-    # the bf16 serving prefill of 512, then qwen3's prefill shape
-    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.float32)
-    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.float32,
-             window=F32_WINDOW)
+    for dtype in both:
+        check_b9(1, 128, 64, 2, 1, 32, dtype, window=16)
+    # the tile edges of the bf16 kernel (128 query rows, 64-key tiles):
+    # one key short of a tile, one past, one past two; GQA 4:1 at every
+    # head dim; Sq not a multiple of 128, causal and not
+    for s_len in (63, 65, 129):
+        for d in HEAD_DIMS:
+            check_b9(1, s_len, s_len, 8, 2, d, torch.bfloat16)
+    check_b9(2, 200, 200, 8, 2, 128, torch.bfloat16)
+    check_b9(1, 200, 333, 8, 2, 64, torch.bfloat16, causal=False)
+    # the path's shapes: the prefill of 128 tokens (and its window run;
+    # f32 on the path, bf16 as the twin), the bf16 serving prefill of
+    # 512, then qwen3's prefill shape
+    for dtype in both:
+        check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, dtype)
+        check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, dtype,
+                 window=F32_WINDOW)
     for s_len in (SERVE_PROMPT, PREFILL_S):
         q, k, v = check_b9(4, s_len, s_len, 16, 8, 128, torch.bfloat16)
         kr = k.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
@@ -380,7 +414,8 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
     print("kernels B9 agrees with its plain version (f32 rtol=atol="
           f"{B9_TOL}; bf16 within one bf16 ulp of the f32 plain version "
           f"where |value| >= 2**-7, one ulp + {B9_TOL} below, and 2e-2 of "
-          f"the bf16 plain version)", flush=True)
+          f"the bf16 plain version; worst bf16 case {worst_ulp['ulp']:.3f} "
+          f"ulp at {worst_ulp['case']})", flush=True)
 
     # the model path with B9 swapped for its plain version: the control
     # that shows B9's share of a difference

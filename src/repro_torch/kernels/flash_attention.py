@@ -5,8 +5,9 @@ GQA, causal and sliding-window masks, q at position 0.
 
 CUDA tensors only (see :mod:`repro_torch.kernels.consensus_mix` for the
 conventions). The kernel has no backward, as the TPU kernel has none, so
-the wrapper refuses inputs that require grad. It counts its launches in
-its ``launches`` attribute.
+the wrapper refuses inputs that require grad. The bf16 kernel reads q, k
+and v through TMA, which needs 16-byte aligned tensors; the wrapper
+refuses others. It counts its launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -43,6 +44,20 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, sk, h, kvh, d
 
 
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """TMA reads the bf16 kernel's q, k and v from 16-byte aligned
+    addresses only (its ``out`` is always a fresh, aligned tensor): a
+    view that starts inside its
+    storage, at an offset that is not a multiple of 16 bytes, is refused
+    (copy it with ``.clone()``)."""
+    for name, t in tensors.items():
+        off = t.data_ptr() % 16
+        _require(off == 0, f"flash_attention: {name} must be 16-byte "
+                           f"aligned for TMA, but starts {off} bytes past "
+                           f"a 16-byte boundary (storage offset "
+                           f"{t.storage_offset()})")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q (B, Sq, H, D); k/v (B, Sk, KV, D), contiguous, float32 or
@@ -55,6 +70,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = _check_cuda(q, k, v)
     b, sq, sk, h, kvh, d = check_args(q, k, v, window)
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        check_aligned(q=q, k=k, v=v)
     if q.numel() == 0:
         return out
     fn = f"repro_flash_attention_{_SUFFIX[q.dtype]}"

@@ -8,7 +8,9 @@ non-causal Sq=128 Sk=256) at that file's tolerances (2e-5 f32, 2e-2
 bf16), plus ragged lengths, which the Pallas kernel's block asserts
 refuse, against ``repro.models.attention.attend``, and rows with no live
 key. Inputs are made with numpy. The CUDA kernel itself runs only on the
-card (``chip_smoke.py``); here its wrapper's checks run up to the launch.
+card (``chip_smoke.py``); here its wrapper's checks run up to the launch,
+and a torch emulation of the bf16 kernel's arithmetic (p passed to the
+p.v product as two bf16 terms) is held to the card's one-ulp gate.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -172,3 +174,127 @@ def test_wrapper_checks_before_launch(bad, msg, monkeypatch):
     with pytest.raises(ValueError, match=msg):
         tfa.flash_attention(*args, **kw)
     assert tfa.flash_attention.launches == before
+
+
+# -- the bf16 kernel's arithmetic, emulated ---------------------------------
+# On the card the bf16 kernel multiplies p by v on the tensor cores, which
+# take p in bf16. It splits p into two bf16 terms, p_hi = bf16(p) and
+# p_lo = bf16(p - p_hi), and adds both products into one f32 accumulator.
+# chip_smoke.py holds bf16 B9 to one bf16 ulp of the f32 plain version where
+# |value| >= 2**-7 (one ulp + 2e-5 below). The emulation below repeats the
+# kernel's steps in torch on the CPU (key tiles of 64, online softmax in
+# f32 with exp2 and scale * log2 e folded in, l summed per quad lane and
+# the four partial sums added at the end, the f32 accumulator rescaled by
+# alpha, bf16 output) and shows that the split keeps that gate and a p
+# rounded once to bf16 does not. These tests pin that numerical argument;
+# they run none of the CUDA kernel, which only chip_smoke.py checks.
+
+def _emulate_bf16_kernel(q, k, v, *, causal, window, split, tile=64):
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.float().permute(0, 2, 1, 3)                       # (B, H, Sq, D)
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    qp = torch.arange(sq)[:, None]
+    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    l = torch.zeros((b, h, sq, 4))          # one share per lane of a quad
+    o = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, tile):
+        kp = torch.arange(k0, min(k0 + tile, sk))[None, :]
+        live = torch.ones((sq, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window is not None:
+            live &= kp > qp - window
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        s = torch.where(live, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2((m - m_use) * scale_log2)
+        p = torch.exp2(s * scale_log2 - m_use * scale_log2)
+        # lane t of a quad holds the columns 8i + 2t and 8i + 2t + 1
+        width = p.shape[-1]
+        pad = torch.nn.functional.pad(p, (0, tile - width))
+        l = l * alpha + pad.view(b, h, sq, tile // 8, 4, 2).sum(dim=(3, 5))
+        p_hi = p.to(torch.bfloat16).float()
+        pv = p_hi @ vf[:, :, k0:k0 + tile]
+        if split:
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            pv = pv + p_lo @ vf[:, :, k0:k0 + tile]
+        o = o * alpha + pv
+        m = m_new
+    l = (l[..., 0:1] + l[..., 1:2]) + (l[..., 2:3] + l[..., 3:4])
+    out = o / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _ulps_over_gate(out, want):
+    """(outputs past the card's gate, worst error in ulps where
+    |value| >= 2**-7), as chip_smoke.py's check of bf16 B9 counts them:
+    one bf16 ulp where |value| >= 2**-7, one ulp + 2e-5 below."""
+    diff = (out.float() - want).abs()
+    a = want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    big = want.abs() >= 2 ** -7
+    over = int((diff[big] > ulp[big]).sum()) + int(
+        (diff[~big] > ulp[~big] + 2e-5).sum())
+    return over, (diff / ulp)[big].max().item()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (1, 128, 128, 2, 2, 64),     # tests/test_kernels.py's sweep
+    (2, 256, 256, 4, 2, 64),
+    (1, 128, 128, 8, 1, 32),
+    (1, 512, 512, 2, 2, 128),
+    (1, 256, 256, 16, 8, 128),   # qwen3-1.7b's heads
+])
+def test_split_p_keeps_the_one_ulp_gate_and_one_rounding_breaks_it(
+        b, sq, sk, h, kv, d):
+    _, (q, k, v) = _qkv(b, sq, sk, h, kv, d, "bf16", sq + h + d)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                               window=None)
+    split = _emulate_bf16_kernel(q, k, v, causal=True, window=None,
+                                 split=True)
+    over, worst = _ulps_over_gate(split, want)
+    assert over == 0 and worst < 0.6, (over, worst)
+    once = _emulate_bf16_kernel(q, k, v, causal=True, window=None,
+                                split=False)
+    over, worst = _ulps_over_gate(once, want)
+    assert over > 0 and worst > 2.0, (over, worst)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_split_p_keeps_the_one_ulp_gate_under_a_window(window):
+    """tests/test_kernels.py's sliding windows: tiles that are partly dead,
+    and rows whose running max moves from tile to tile."""
+    _, (q, k, v) = _qkv(1, 256, 256, 2, 2, 64, "bf16", window)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), causal=True,
+                               window=window)
+    split = _emulate_bf16_kernel(q, k, v, causal=True, window=window,
+                                 split=True)
+    over, worst = _ulps_over_gate(split, want)
+    assert over == 0 and worst < 0.6, (over, worst)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_wrapper_refuses_bf16_tensors_off_a_16_byte_boundary(name,
+                                                             monkeypatch):
+    """TMA reads the bf16 kernel's inputs from 16-byte aligned addresses
+    only. A contiguous view that starts one element into its storage is
+    refused before any launch; a view 8 elements (16 bytes) in is not."""
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *t: t[0].device)
+    shapes = {"q": (1, 8, 4, 32), "k": (1, 8, 2, 32), "v": (1, 8, 2, 32)}
+    args = {n: torch.zeros(s, dtype=torch.bfloat16)
+            for n, s in shapes.items()}
+    n = int(np.prod(shapes[name]))
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16)
+    args[name] = flat[1:1 + n].view(shapes[name])
+    assert args[name].is_contiguous() and args[name].storage_offset() == 1
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+        tfa.flash_attention(args["q"], args["k"], args["v"])
+    assert tfa.flash_attention.launches == before
+    tfa.check_aligned(**{name: flat[8:8 + n].view(shapes[name])})
