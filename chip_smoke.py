@@ -8,7 +8,9 @@ Phases: the device; the build of every CUDA kernel from
 vehicular fleet (Manhattan mobility, sparse top-8 and hierarchical),
 built once on the host and timed on their own line; each kernel held
 against its plain PyTorch version at the shapes of the main path, with
-CUDA-event timings (B5/B6 on the fleet's own neighbor tables); the
+CUDA-event timings (B5/B6 on the fleet's own neighbor tables; B1/B2 also
+at the K=1024 fleet's dense exchange, and held over a sweep of K, P and
+unaligned views that reaches every path of their tiled kernel); the
 paper's C-DFL path at K=4 (cdfl, then fedavg), each checked against the
 same run of the port on the CPU; a K=256 bf16-wire fleet, with one round
 under the profiler; the twin of ``examples/mobility_platoon.py`` (K=8,
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -235,6 +238,35 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counted().items()}
+
+
+# B1's CUDA kernels (csrc/consensus_mix.cu): the small-K kernel and the
+# tiled one, each instantiated per tile and wire type
+B1_KERNELS = ("flat_mix_kernel", "flat_mix_tiled")
+
+
+def b1_ms(busy: dict) -> float:
+    """Device ms of B1's kernels in a ``device_profile`` map: a kernel's
+    name, up to its template arguments, is one of ``B1_KERNELS``."""
+    return sum(v for n, v in busy.items() if n.split("<")[0] in B1_KERNELS)
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
+    """(mangled kernel name, registers, spill-store bytes, spill-load
+    bytes) for each kernel in an ``nvcc -Xptxas -v`` log."""
+    found, name, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif "spill stores" in ln:
+            st, ld = (int(w) for w in
+                      re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
+            spill = (st, ld)
+        elif "Used" in ln and "registers" in ln and name:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            found.append((name, regs) + spill)
+            name, spill = None, (0, 0)
+    return found
 
 
 def device_profile(prof) -> tuple[dict, int]:
@@ -1007,9 +1039,12 @@ def main() -> None:
     logs = _build.build_all(force=True)
     secs = time.perf_counter() - t0
     regs = [ln.strip() for log in logs.values() for ln in log.splitlines()
-            if "registers" in ln]
+            if "registers" in ln or "spill" in ln]
     print(f"build {secs:.1f}s sources={sorted(logs)} "
           f"ptxas={' | '.join(regs)}", flush=True)
+    for name, n_regs, st, ld in ptxas_kernels(logs["consensus_mix"]):
+        print(f"ptxas consensus_mix {name} registers={n_regs} "
+              f"spill_stores={st} spill_loads={ld}", flush=True)
 
     nodes4 = paper_nodes(4)
     data4, items4 = node_arrays(nodes4)
@@ -1093,44 +1128,85 @@ def main() -> None:
                    library_graph_ms=lib_graph_ms, bound_ms=b_ms,
                    bound_by=b_by, **(extra or {}))
 
-    for k in (4, 256):
-        master = torch.randn((k, P), generator=gen, device=dev)
+    def flat_inputs(k, p, off=0):
+        """A (K, P) f32 master and its bf16 wire, views that start ``off``
+        elements into their buffers, and a row-stochastic eta with a zero
+        diagonal."""
+        flat = torch.randn(k * p + off, generator=gen, device=dev)
+        master = flat[off:].view(k, p)
+        wire16 = flat.to(torch.bfloat16)[off:].view(k, p)
         eta = torch.rand((k, k), generator=gen, device=dev)
         eta.fill_diagonal_(0.0)
         eta = (eta / eta.sum(dim=1, keepdim=True)).contiguous()
-        gamma = torch.full((1,), 0.5, device=dev)
-        for wdt in (torch.float32, torch.bfloat16):
-            wire = master if wdt == torch.float32 else master.to(wdt)
+        return master, wire16, eta
+
+    def flat_err(eta, master, wire, gamma, label):
+        """B1 (``wire`` given) or B2 (``wire`` None) against its plain
+        version: max |diff|; fails outside RTOL/ATOL."""
+        if wire is None:
+            out = cm.flat_consensus(eta, master)
+            want = ref.flat_consensus(eta, master)
+        else:
             out = cm.flat_mix(eta, master, wire, gamma)
             want = ref.flat_mix(eta, master, wire, gamma)
-            torch.cuda.synchronize()
-            if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
-                fail(f"flat_mix K={k} wire={wdt} disagrees with its plain "
-                     f"version: max |diff| "
-                     f"{(out - want).abs().max().item():.3e}")
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
+            fail(f"{label} disagrees with its plain version: max |diff| "
+                 f"{err:.3e}")
+        return err
+
+    gamma = torch.full((1,), 0.5, device=dev)
+    # K=1024 (the fleet's dense exchange, bf16 wire) before K=256: the
+    # kernel table keeps each name's last row, the K=256 path's shape
+    dense_b1_ms = None
+    for k in (4, FLEET_K, 256):
+        master, wire16, eta = flat_inputs(k, P)
+        for wdt in ((torch.bfloat16,) if k == FLEET_K
+                    else (torch.float32, torch.bfloat16)):
+            wire = master if wdt == torch.float32 else wire16
+            shape = f"K={k} P={P} wire={str(wdt)[6:]}"
+            err = flat_err(eta, master, wire, gamma, f"flat_mix {shape}")
             w32 = wire.float()
             row = eta.sum(dim=1)
             a_pre = (0.5 * (eta - torch.diag(row))).contiguous()
             wbytes = wire.element_size()
-            record("flat_mix", f"K={k} P={P} wire={str(wdt)[6:]}",
-                   (out - want).abs().max().item(),
+            record("flat_mix", shape, err,
                    lambda: cm.flat_mix(eta, master, wire, gamma),
                    lambda: ref.flat_mix(eta, master, wire, gamma),
                    lambda: torch.addmm(master, a_pre, w32),
                    4 * k * k + (8 + wbytes) * k * P + 4,
                    2 * k * k * P + 4 * k * P, F32_OPS_PER_S)
-        out = cm.flat_consensus(eta, master)
-        want = ref.flat_consensus(eta, master)
-        torch.cuda.synchronize()
-        if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
-            fail(f"flat_consensus K={k} disagrees with its plain version: "
-                 f"max |diff| {(out - want).abs().max().item():.3e}")
-        record("flat_consensus", f"K={k} P={P}",
-               (out - want).abs().max().item(),
+            if k == FLEET_K:
+                dense_b1_ms = rows["flat_mix"]["graph_ms"]
+        err = flat_err(eta, master, None, None, f"flat_consensus K={k}")
+        record("flat_consensus", f"K={k} P={P}", err,
                lambda: cm.flat_consensus(eta, master),
                lambda: ref.flat_consensus(eta, master),
                lambda: torch.matmul(eta, master),
                4 * k * k + 8 * k * P, 2 * k * k * P, F32_OPS_PER_S)
+
+    # B1 (f32 and bf16 wire) and B2 where the tiled kernel's masks and
+    # paths reach: K past the cut-over and ragged against its 16-node
+    # stages and 64/128-row tiles; P ragged against its 128 columns and
+    # 16-byte runs; and contiguous views 4 bytes (f32) or 2 bytes (bf16)
+    # past a 16-byte boundary, which take its scalar copies
+    worst, calls = 0.0, 0
+    for k, p, off in ([(k, p, 0) for k in (25, 33, 64, 100, 256, FLEET_K)
+                       for p in (P, 23_560, 1_001)] + [(256, P, 1)]):
+        master, wire16, eta = flat_inputs(k, p, off)
+        for wire in (master, wire16, None):
+            what = ("flat_consensus" if wire is None
+                    else f"flat_mix wire={wire.dtype}")
+            worst = max(worst, flat_err(eta, master, wire, gamma,
+                                        f"{what} K={k} P={p} offset={off}"))
+            calls += 1
+    print(f"check flat sweep K=25,33,64,100,256,{FLEET_K} x P={P},23560,1001 "
+          f"(B1 f32 and bf16 wire, B2) and views one element past a 16-byte "
+          f"boundary at K=256 (master +4 B, bf16 wire +2 B): {calls} calls, "
+          f"worst max|diff|={worst:.3e} within rtol={RTOL} atol={ATOL}",
+          flush=True)
+    del master, wire16
 
     for items_np in (items4, items256):
         items = torch.as_tensor(items_np, device=dev).contiguous()
@@ -1587,7 +1663,9 @@ def main() -> None:
 
     def profiled(tr, state, data_dev, gen_idx, **kw):
         """One round under the profiler: (state, wall ms, busy by kernel,
-        device event count)."""
+        device event count). Fails when the round launched B1 and no
+        kernel of ``B1_KERNELS`` shows device time."""
+        b1_before = cm.flat_mix.launches
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1596,7 +1674,12 @@ def main() -> None:
                                      **kw)
             torch.cuda.synchronize()
             prof_ms = 1e3 * (time.perf_counter() - t0)
-        return (state, prof_ms) + device_profile(prof)
+        busy, n_dev = device_profile(prof)
+        b1_launched = cm.flat_mix.launches - b1_before
+        if b1_launched and b1_ms(busy) <= 0:
+            fail(f"profile: the round launched B1 {b1_launched} times but "
+                 f"no kernel named {B1_KERNELS} shows device time")
+        return state, prof_ms, busy, n_dev
 
     # -- 6. fleet at K=256, bf16 wire -------------------------------------
     fed = FedConfig(num_nodes=256, topology="ring", gamma=0.5,
@@ -1624,15 +1707,14 @@ def main() -> None:
         fail("fleet: non-finite loss")
     busy_ms = sum(busy.values())
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    b1_ms = sum(v for n, v in busy.items()
-                if "mix_kernel<" in n and ", true," in n
-                and "gather" not in n)
+    b1 = b1_ms(busy)
     print(f"path fleet K=256 wire=bf16 ms/round={round_ms:.3f} "
           f"loss={metrics['loss'].mean().item():.4f} launches={counts}",
           flush=True)
     print(f"profile fleet round: wall_ms={prof_ms:.3f} device_busy_ms="
           f"{busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} "
-          f"B1_ms={b1_ms:.4f} B1_share_of_wall={b1_ms / prof_ms:.4f} "
+          f"B1_ms={b1:.4f} B1_share_of_wall={b1 / prof_ms:.4f} "
+          f"B1_share_of_busy={b1 / busy_ms:.4f} "
           f"device_events={n_dev} top="
           f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
     fleet256_ms = round_ms
@@ -1667,12 +1749,9 @@ def main() -> None:
           flush=True)
     state, prof_ms, busy, n_dev = profiled(tr, state, data_dev, gen_idx)
     busy_ms = sum(busy.values())
-    b1_ms = sum(v for n, v in busy.items()
-                if "mix_kernel<" in n and ", true," in n
-                and "gather" not in n)
     print(f"profile cdfa_m K=256 round: wall_ms={prof_ms:.3f} device_busy_ms"
           f"={busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} B1_ms="
-          f"{b1_ms:.4f} device_events={n_dev}", flush=True)
+          f"{b1_ms(busy):.4f} device_events={n_dev}", flush=True)
     a_ms, b_ms, a_all, b_all = paired_ms(
         fleet256, runner(tr, state, data_dev, gen_idx), blocks=2, rounds=3)
     print(f"paired K=256 ring ms/round (turns cdfl, cdfa_m, cdfa_m, cdfl, "
@@ -1774,16 +1853,14 @@ def main() -> None:
             gamma_stack=gammas[timed:])
         busy_ms = sum(busy.values())
         gather_ms = sum(v for n, v in busy.items() if "gather_mix" in n)
-        b1_ms = sum(v for n, v in busy.items()
-                    if "mix_kernel<" in n and "gather" not in n)
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
         print(f"exchange {fmt} K={FLEET_K} round 0: ms={ex_ms:.5f} "
               f"graph_ms={ex_graph_ms:.5f} dense_B1_bound_ms={dense_ms:.5f} "
-              f"({dense_by})", flush=True)
+              f"({dense_by}) dense_B1_graph_ms={dense_b1_ms:.5f}", flush=True)
         print(f"profile fleet {fmt} round {timed}: wall_ms={prof_ms:.3f} "
               f"device_busy_ms={busy_ms:.3f} busy_share="
               f"{busy_ms / prof_ms:.4f} gather_kernels_ms={gather_ms:.4f} "
-              f"B1_ms={b1_ms:.4f} device_events={n_dev} top="
+              f"B1_ms={b1_ms(busy):.4f} device_events={n_dev} top="
               f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
     del data_dev
 

@@ -20,9 +20,14 @@ from repro_torch.kernels import consensus_mix as tcm
 
 _DT = {"f32": (jnp.float32, torch.float32),
        "bf16": (jnp.bfloat16, torch.bfloat16)}
-# tests/test_kernels.py::test_flat_consensus_kernel_sweep, at its tolerance
+# tests/test_kernels.py::test_flat_consensus_kernel_sweep, at its tolerance,
+# and K where csrc/consensus_mix.cu runs its tiled kernel (from K=25; ragged
+# against its 16-node stages and its 64-row tiles)
 FLAT_SWEEP = [(4, 1024, 128, "f32"), (4, 2048, 512, "f32"),
-              (8, 512, 128, "f32"), (4, 1024, 128, "bf16")]
+              (8, 512, 128, "f32"), (4, 1024, 128, "bf16"),
+              (25, 512, 128, "f32"), (33, 512, 128, "f32"),
+              (64, 1024, 128, "f32"), (100, 512, 128, "f32"),
+              (64, 1024, 128, "bf16")]
 # tests/test_kernels.py::test_cnd_bitmaps_sweep
 CND_SWEEP = [(64, 4, 1024, 3), (500, 8, 8192, 3), (1000, 16, 4096, 2),
              (37, 5, 2048, 4)]
