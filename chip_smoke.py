@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases: the device; the build of every CUDA kernel from
-``src/repro_torch/csrc``; the per-round mixing stacks of the K=1024
-vehicular fleet (Manhattan mobility, sparse top-8 and hierarchical),
+``src/repro_torch/csrc``, with ptxas's registers and spills for each
+instantiation of B1/B2/B8 and of B10; the per-round mixing stacks of the
+K=1024 vehicular fleet (Manhattan mobility, sparse top-8 and hierarchical),
 built once on the host and timed on their own line; each kernel held
 against its plain PyTorch version at the shapes of the main path, with
 CUDA-event timings (B5/B6 on the fleet's own neighbor tables; B1/B2 also
@@ -46,12 +47,16 @@ logits held against the decode's) and in f32 (128 prompt tokens, with and withou
 64-token window), ``serve.main`` at smoke width on the card against the
 CPU (and a GQA variant), and one decode step under the profiler; then
 the rwkv6 slice: B10 held against its plain version (tests/test_kernels.py's
-sweep, tests/test_ssm.py's shapes from a non-zero state, and the path's
-shapes up to rwkv6's prefill of B=4 S=2048), rwkv6-7b at full width in
-bf16 (4 requests of 512 prompt tokens through the prefill step, held to
-the plain-scan prefill with the sequential-scan prefill as the measure of
-what bf16 allows, and block by block from the same input; teacher-forced
-decode, 16 generated tokens, one profiled decode step) and in f32 (128
+sweep, tests/test_ssm.py's shapes from a non-zero state, every instantiation
+of the kernel (head sizes 16-128 x chunks 16-64 x f32/bf16) from a state,
+one chunk, decays that underflow, inputs not 16-byte aligned; and the
+path's shapes: f32 S=128, bf16 S=512 and rwkv6's prefill of B=4 S=2048,
+each timed), rwkv6-7b at full width in bf16 (4 requests of 512 prompt
+tokens through the prefill step, once under the profiler for B10's share
+of its device time, held to the plain-scan prefill with the
+sequential-scan prefill as the measure of what bf16 allows, and block
+by block from the same input; teacher-forced decode, 16 generated tokens,
+one profiled decode step) and in f32 (128
 prompt tokens through B10 and a ragged 120 through the sequential scan,
 each against teacher-forced decode), and ``serve.main --arch rwkv6-7b``
 at smoke width on the card against the CPU; the kernel table (ten
@@ -680,19 +685,30 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
     # -- 11a. B10 against its plain version ------------------------------
     # Both compute the scan in f32 from the same values (bf16 r/k/v are
     # upcast by both); they differ in f32 summation order over S/C chunks
-    # and in exp2f/log2f against exp/log, a few f32 ulps of partial sums
-    # of up to D*C terms: about 1e-6 of max |value| (8.9e-7 at worst on an
-    # H100 80GB HBM3, 700 W). B10_TOL leaves a margin of about 20x, on y
-    # and on the final state alike.
-    def check_b10(b, s, h, d, chunk, dtype, decay, with_s0):
+    # and in exp2/log2 against exp/log, a few f32 ulps of partial sums of
+    # up to C + D terms: 1e-6 to 6e-6 of max |value|, the most at chunk 64
+    # (on an H100 80GB HBM3, 700 W). B10_TOL leaves a margin of 3x or
+    # more, on y and on the final state alike.
+    def check_b10(b, s, h, d, chunk, dtype, decay, with_s0, off=0):
+        """``off`` > 0: r, k, v and w are contiguous views that start
+        ``off`` elements into their buffers (not 16-byte aligned)."""
+        def view(t):
+            flat = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+            flat[off:] = t.flatten()
+            return flat[off:].view(t.shape)
+
         r, k, v = (torch.randn((b, s, h, d), generator=gen,
                                device=dev).to(dtype) for _ in range(3))
         z = torch.randn((b, s, h, d), generator=gen, device=dev)
         if decay == "kernel":     # tests/test_kernels.py's w in (0.05, 0.95)
             w = torch.sigmoid(z) * 0.9 + 0.05
+        elif decay == "underflow":   # w within 1% of e^-4: a chunk's decay
+            w = torch.exp(-rwkv.MAX_LOG_DECAY + 0.01 * torch.sigmoid(z))
         else:                     # the model's clamp, w >= e^-4
             w = torch.exp(-torch.clamp(torch.exp(z), 1e-6,
                                        rwkv.MAX_LOG_DECAY))
+        if off:
+            r, k, v, w = view(r), view(k), view(v), view(w)
         u = torch.randn((h, d), generator=gen, device=dev) * 0.1
         s0 = (torch.randn((b, h, d, d), generator=gen, device=dev) * 0.3
               if with_s0 else None)
@@ -700,7 +716,8 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
         want_y, want_s = ref.rwkv6_scan(r, k, v, w, u, s0, chunk)
         torch.cuda.synchronize()
         label = (f"B={b} S={s} H={h} D={d} chunk={chunk} {str(dtype)[6:]} "
-                 f"w={decay} s0={'yes' if with_s0 else 'zero'}")
+                 f"w={decay} s0={'yes' if with_s0 else 'zero'}"
+                 f"{f' offset={off}' if off else ''}")
         err = 0.0
         for name, got, want in (("y", y, want_y), ("state", sf, want_s)):
             diff = (got - want).abs().max().item()
@@ -723,16 +740,34 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
     for b, s, h, d in ((1, 16, 1, 32), (2, 64, 3, 64), (1, 128, 2, 16)):
         check_b10(b, s, h, d, 16, torch.float32, "model", True)
     check_b10(2, 64, 3, 64, 16, torch.bfloat16, "model", True)
-    # the path's shapes: the f32 prefill of 128 tokens, the bf16 serving
-    # prefill of 512 (timed), then rwkv6's prefill of 2048 (timed)
-    check_b10(SERVE_BATCH, RWKV_F32_PROMPT, 64, 64, 16, torch.float32,
-              "model", False)
-    for s_len in (SERVE_PROMPT, PREFILL_S):
-        r, k, v, w, u = check_b10(SERVE_BATCH, s_len, 64, 64, 16,
-                                  torch.bfloat16, "model", False)
-        nbytes, flops = b10_work(SERVE_BATCH, s_len, 64, 64, 16, 2)
+    # every instantiation of the kernel (head size x chunk x dtype: its
+    # shared-memory plan, stages and value split differ between them),
+    # two chunks from a state; one chunk only; decays whose products
+    # underflow over a 64-token chunk; inputs that are not 16-byte aligned
+    # (staged with plain loads)
+    for d in rw.HEAD_SIZES:
+        for chunk in rw.CHUNKS:
+            for dtype in (torch.float32, torch.bfloat16):
+                check_b10(2, 2 * chunk, 3, d, chunk, dtype, "model", True)
+    check_b10(2, 16, 3, 64, 16, torch.float32, "model", True)
+    check_b10(2, 64, 3, 64, 64, torch.bfloat16, "model", True)
+    check_b10(1, 128, 2, 64, 64, torch.float32, "underflow", True)
+    check_b10(1, 128, 2, 128, 64, torch.float32, "underflow", False)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_b10(2, 64, 3, 64, 16, dtype, "model", True, off=1)
+    # the path's shapes: the f32 prefill of 128 tokens (timed), the bf16
+    # serving prefill of 512 (timed), then rwkv6's prefill of 2048 (timed;
+    # the kernel table keeps this last row)
+    for s_len, dtype in ((RWKV_F32_PROMPT, torch.float32),
+                         (SERVE_PROMPT, torch.bfloat16),
+                         (PREFILL_S, torch.bfloat16)):
+        r, k, v, w, u = check_b10(SERVE_BATCH, s_len, 64, 64, 16, dtype,
+                                  "model", False)
+        nbytes, flops = b10_work(SERVE_BATCH, s_len, 64, 64, 16,
+                                 r.element_size())
         record("rwkv6_scan", f"B={SERVE_BATCH} S={s_len} H=64 D=64 chunk=16 "
-               f"r/k/v bf16 w f32", rows["rwkv6_scan"]["max_abs_err"],
+               f"r/k/v {str(dtype)[6:]} w f32",
+               rows["rwkv6_scan"]["max_abs_err"],
                lambda: rw.rwkv6_scan(r, k, v, w, u),
                lambda: ref.rwkv6_scan(r, k, v, w, u), None, nbytes, flops,
                F32_OPS_PER_S, slow=True,
@@ -785,6 +820,37 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
     reset_counts()
     logits_pf = transformer.forward(params, cfg, batch, last_only=True)[0]
     counts_only("rwkv prefill logits", read_counts(), cfg.num_layers)
+    # the same prefill step under the profiler: B10's share of its device
+    # time (the kernel's name, up to its template arguments, is
+    # rwkv6_kernel)
+    reset_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    # checked, and left out of the launch totals: a measurement, not a
+    # path run
+    expect_counts("rwkv profiled prefill", read_counts(),
+                  {name: (cfg.num_layers if name == "rwkv6_scan" else 0)
+                   for name in counted()})
+    busy, n_dev = device_profile(prof)
+    busy_ms = sum(busy.values())
+    b10_ms = sum(v for n, v in busy.items() if n.startswith("rwkv6_kernel"))
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+    print(f"profile serve {RWKV_ARCH} bf16 prefill (batch {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} tokens): wall_ms={prof_ms:.3f} device_busy_ms="
+          f"{busy_ms:.3f} B10_ms={b10_ms:.3f} B10_share_of_device_time="
+          f"{b10_ms / busy_ms:.4f} busy_share={busy_ms / prof_ms:.4f} "
+          f"device_events={n_dev} top="
+          f"{[(n, round(v, 4)) for n, v in top]} (the share reported, not "
+          f"gated)", flush=True)
+    if not b10_ms > 0:
+        fail(f"{RWKV_ARCH} profiled prefill launched B10 but no kernel named "
+             f"rwkv6_kernel shows device time")
     with plain_b10:
         logits_plain = transformer.forward(params, cfg, batch,
                                            last_only=True)[0]
@@ -1042,9 +1108,10 @@ def main() -> None:
             if "registers" in ln or "spill" in ln]
     print(f"build {secs:.1f}s sources={sorted(logs)} "
           f"ptxas={' | '.join(regs)}", flush=True)
-    for name, n_regs, st, ld in ptxas_kernels(logs["consensus_mix"]):
-        print(f"ptxas consensus_mix {name} registers={n_regs} "
-              f"spill_stores={st} spill_loads={ld}", flush=True)
+    for lib in ("consensus_mix", "rwkv6_scan"):
+        for name, n_regs, st, ld in ptxas_kernels(logs[lib]):
+            print(f"ptxas {lib} {name} registers={n_regs} "
+                  f"spill_stores={st} spill_loads={ld}", flush=True)
 
     nodes4 = paper_nodes(4)
     data4, items4 = node_arrays(nodes4)

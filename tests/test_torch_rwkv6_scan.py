@@ -8,7 +8,8 @@ same function in another f32 order: 2e-4 absolute, 1e-5 relative, against
 |y| up to about 100) and ``scan_reference`` at
 tests/test_ssm.py's 5e-4 / 1e-3. Inputs are made with numpy. The CUDA
 kernel itself runs only on the card (``chip_smoke.py``); here its
-wrapper's checks run up to the launch.
+wrapper's checks run up to the launch, and a torch emulation of its
+arithmetic order is held to the card's gate (2e-5 of max |value|).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +164,144 @@ def test_wrapper_checks_before_launch(bad, msg, monkeypatch):
     with pytest.raises(ValueError, match=msg):
         trw.rwkv6_scan(*args, **kw)
     assert trw.rwkv6_scan.launches == before
+
+
+# -- the CUDA kernel's arithmetic, emulated ---------------------------------
+# On the card, B10 (csrc/rwkv6_scan.cu) takes log2 w and its cumulative sum
+# L with a scan across the G = 256 / D lanes of a channel, row by row of G
+# tokens; forms the carry-in operand r 2^{L_{t-1}}, the update operand
+# k 2^{L_C - L_t} and the state's decay 2^{L_C}; sums each causal score
+# pairwise (one exp2 of L_{t-1} - L_i <= 0 per pair and channel) over four
+# interleaved quarters of the channels, added (q0 + q1) + (q2 + q3), and
+# each bonus over two halves; computes y as one product [A | r~] @ [v ; S]
+# whose K = C + D rows are summed in KS consecutive groups and the groups
+# added in order; and updates S as e^{L_C} S plus the tokens' outer
+# products in token order. chip_smoke.py holds the kernel to its plain
+# version within 2e-5 of max |value| (B10_TOL). The emulation below repeats
+# those steps in torch on the CPU and holds them to the same gate; it
+# pins the numerical argument (every exponent <= 0, decays that underflow
+# to zero harmlessly) and runs none of the CUDA kernel.
+
+_B10_TOL = 2e-5
+
+
+def _emulate_b10(r, k, v, w, u, s0, chunk):
+    b, seq, h, d = r.shape
+    lanes = 256 // d
+    ks = max(1, 256 // ((chunk // 4) * (d // 4)))
+    r, k, v = (x.float() for x in (r, k, v))
+    lw = torch.log2(torch.clamp(w.float(), min=1e-38))
+    s = (torch.zeros((b, h, d, d)) if s0 is None else s0.float()).clone()
+    quarter = (torch.arange(d) // 4) % 4      # channel d = 16 j + 4 q + c
+    half = (torch.arange(d) // 4) % 2         # channel d = 8 j + 4 h + c
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    ys = []
+    for c0 in range(0, seq, chunk):
+        rc, kc, vc = (x[:, c0:c0 + chunk] for x in (r, k, v))
+        # L: a Hillis-Steele scan across the lanes of each row, then the
+        # rows' carry in order
+        x = lw[:, c0:c0 + chunk].reshape(b, chunk // lanes, lanes, h, d)
+        off = 1
+        while off < lanes:
+            shifted = torch.zeros_like(x)
+            shifted[:, :, off:] = x[:, :, :-off]
+            x = torch.where((torch.arange(lanes) >= off)[:, None, None],
+                            x + shifted, x)
+            off *= 2
+        carry = torch.zeros((b, h, d))
+        rows = []
+        for j in range(chunk // lanes):
+            rows.append(carry[:, None] + x[:, j])
+            carry = rows[-1][:, -1]
+        el = torch.cat(rows, dim=1)                         # L_t (b,C,h,d)
+        el_prev = torch.cat([torch.zeros_like(el[:, :1]), el[:, :-1]], 1)
+        r_til = rc * torch.exp2(el_prev)
+        k_til = kc * torch.exp2(carry[:, None] - el)
+        dec = torch.exp2(carry)                             # (b,h,d)
+        # scores, pairwise, by quarters of the channels in their order
+        parts = []
+        for q in range(4):
+            acc = torch.zeros((b, chunk, chunk, h))
+            for c in torch.nonzero(quarter == q).flatten().tolist():
+                expo = el_prev[:, :, None, :, c] - el[:, None, :, :, c]
+                dec_ti = torch.exp2(torch.where(causal[None, :, :, None],
+                                                expo, -torch.inf))
+                acc = acc + (rc[:, :, None, :, c] * kc[:, None, :, :, c]) \
+                    * dec_ti
+            parts.append(acc)
+        a = (parts[0] + parts[1]) + (parts[2] + parts[3])   # (b,t,i,h)
+        bonus = []
+        for hh in range(2):
+            acc = torch.zeros((b, chunk, h))
+            for c in torch.nonzero(half == hh).flatten().tolist():
+                acc = acc + (rc[..., c] * u[:, c]) * kc[..., c]
+            bonus.append(acc)
+        idx = torch.arange(chunk)
+        a[:, idx, idx] = bonus[0] + bonus[1]
+        # y = [A | r~] @ [v ; S]: K rows in KS groups, the groups in order
+        xa = torch.cat([a.permute(0, 2, 1, 3), r_til.permute(0, 3, 1, 2)],
+                       dim=1)                               # (b,K,t,h)
+        xb = torch.cat([vc, s.permute(0, 2, 1, 3)], dim=1)  # (b,K,h,e)
+        klen = (chunk + d) // ks
+        y = None
+        for kp in range(ks):
+            part = torch.zeros((b, chunk, h, d))
+            for kk in range(kp * klen, (kp + 1) * klen):
+                part = part + xa[:, kk, :, :, None] * xb[:, kk, None]
+            y = part if y is None else y + part
+        ys.append(y)
+        # S <- e^{L_C} S + sum_t k~_t v_t^T, token by token
+        s = dec[..., None] * s
+        for t in range(chunk):
+            s = s + k_til[:, t, :, :, None] * vc[:, t, :, None, :]
+    return torch.cat(ys, dim=1), s
+
+
+def _within_b10_gate(got, want):
+    for g, wv in zip(got, want):
+        diff = (g - wv).abs().max().item()
+        assert diff <= _B10_TOL * wv.abs().max().item(), diff
+
+
+@pytest.mark.parametrize("chunk,w_kind,with_s0", [
+    (16, "model", True), (16, "kernel", False), (64, "model", True),
+    (64, "kernel", True),
+])
+def test_kernel_order_emulated_holds_b10_gate(chunk, w_kind, with_s0):
+    """The model's decays (w >= e^-4) and tests/test_kernels.py's (0.05 to
+    0.95), from zeros and from a state, at the model's chunk and the
+    largest: the kernel's order stays within the card's gate."""
+    arrs = [torch.tensor(a) for a in _inputs(2, 128, 2, 64, chunk, w_kind)]
+    r, k, v, w, u, s0 = arrs
+    s0 = s0 if with_s0 else None
+    got = _emulate_b10(r, k, v, w, u, s0, chunk)
+    _within_b10_gate(got, ref.rwkv6_scan(r, k, v, w, u, s0, chunk))
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_kernel_order_emulated_with_underflowing_decays(chunk):
+    """w within 1% of e^-4 (the model's floor): a 64-token chunk's decays
+    reach e^-256, which f32 holds as zero. Every exponent the kernel forms
+    is <= 0, so those products underflow to zero and the result stays in
+    the gate; the model path's k e^{-L} factorisation overflows there."""
+    r, k, v, _, u, s0 = (torch.tensor(a)
+                         for a in _inputs(1, 128, 2, 64, 7, "model"))
+    rng = np.random.default_rng(11)
+    w = torch.tensor(np.exp(-4.0 + 0.01 * rng.random(r.shape)),
+                     dtype=torch.float32)
+    got = _emulate_b10(r, k, v, w, u, s0, chunk)
+    assert all(torch.isfinite(t).all() for t in got)
+    _within_b10_gate(got, ref.rwkv6_scan(r, k, v, w, u, s0, chunk))
+    el = torch.cumsum(torch.log(w[:, :chunk]), dim=1)
+    assert torch.isfinite(k[:, :chunk] * torch.exp(-el)).all() == \
+        (chunk == 16)
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_kernel_order_emulated_at_other_head_sizes(d):
+    """Head sizes 16, 32 and 128 scan over 16, 8 and 2 lanes a channel and
+    split y's sum over 16, 8 and 2 groups."""
+    r, k, v, w, u, s0 = (torch.tensor(a)
+                         for a in _inputs(1, 64, 2, d, d, "model"))
+    got = _emulate_b10(r, k, v, w, u, s0, 16)
+    _within_b10_gate(got, ref.rwkv6_scan(r, k, v, w, u, s0, 16))
