@@ -5,9 +5,10 @@
 
 Phases: the device; the build of every CUDA kernel from
 ``src/repro_torch/csrc``, with ptxas's registers and spills for each
-instantiation of B1/B2/B8 and of B10; the per-round mixing stacks of the
-K=1024 vehicular fleet (Manhattan mobility, sparse top-8 and hierarchical),
-built once on the host and timed on their own line; each kernel held
+instantiation of B1/B2/B8, of B10 and of B7 (which must not spill); the
+per-round mixing stacks of the K=1024 vehicular fleet (Manhattan
+mobility, sparse top-8 and hierarchical), built once on the host and
+timed on their own line; each kernel held
 against its plain PyTorch version at the shapes of the main path, with
 CUDA-event timings (B5/B6 on the fleet's own neighbor tables; B1/B2 also
 at the K=1024 fleet's dense exchange, and held over a sweep of K, P and
@@ -20,10 +21,14 @@ K=1024 fleets (1 warm-up round, then 3 repeats of 5 timed rounds, one
 profiled round, the exchange timed alone), each format also checked
 against the CPU at K=64; then the fault and robust-mixing path: B7 held
 against its plain version at K=8, 64 and 256 (median, trimmed mean with
-trim 1 and 2) and at K=100 with live non-finite payloads, the Byzantine
+trim 1 and 2), at K=100 with live non-finite payloads, and at K=1, 33 and
+1024 (P=1,024) and the fleet's K=256 with all-live masks and a W of
+random position weights, the Byzantine
 platoon (K=8, one sign-flip attacker, eq. 5 against the trimmed mean,
 gated on the honest nodes' accuracy), the faulted robust K=256 Manhattan
-fleet (every fault kind, trimmed mean) and the faulted K=1024 sparse and
+fleet (every fault kind, trimmed mean; B7 also held against its plain
+version on the fleet's own mask of its first round) and the faulted
+K=1024 sparse and
 hierarchical fleets (link drops, crashes, bit flips, stragglers), each
 with telemetry held against the compiled fault plan and checked against
 the CPU at K=64 (K=8 for the platoon); the paper's remaining baselines:
@@ -39,7 +44,8 @@ accuracy per station, reported, not gated); then LLM serving: the count
 of tensor-core (HGMMA) instructions in B9's library, B9 held against its
 plain version (tests/test_kernels.py's sweep, windows, cross attention,
 ragged lengths and rows with no live key, each in f32 and bf16; the bf16
-kernel's tile edges at every head dim; and the path's shapes up to
+kernel's tile edges at every head dim; bf16 views off a 16-byte boundary
+through ``ops.flash_attention``; and the path's shapes up to
 qwen3's prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4
 requests of 512 prompt tokens through the prefill step, the same prompts
 teacher-forced through the serve step, 16 generated tokens; prefill
@@ -274,6 +280,38 @@ def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
     return found
 
 
+def walk_loop(sass: str) -> tuple[int, int]:
+    """(instructions, walk steps) of the innermost loop of B7's group walk
+    that reads the most sorted pairs with LDS.128 (two steps a read), in a
+    ``cuobjdump -sass`` listing: the SASS cost of the walk's steps."""
+    funcs, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    walk = next(v for n, v in funcs.items() if "robust_agg_group_walk" in n)
+    loops = []                                    # backward branches
+    for addr, ins in walk:
+        m = re.search(r"BRA (0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best = (0, 0)
+    for lo, hi in loops:
+        if any(lo <= a < hi and (a, b) != (lo, hi) for a, b in loops
+               if lo <= b < hi):
+            continue                              # not innermost
+        loop = [i for a, i in walk if lo <= a <= hi]
+        reads = sum("LDS.128" in i for i in loop)
+        if 2 * reads > best[1]:
+            best = (len(loop), 2 * reads)
+    return best
+
+
 def device_profile(prof) -> tuple[dict, int]:
     """Device busy milliseconds by kernel name, and the event count."""
     busy, n_dev = {}, 0
@@ -355,16 +393,34 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
              "not run on the tensor cores")
     worst_ulp = {"ulp": 0.0, "case": None}
 
-    def check_b9(b, sq, sk, h, kv, d, dtype, causal=True, window=None):
+    def check_b9(b, sq, sk, h, kv, d, dtype, causal=True, window=None,
+                 off=0):
+        """``off`` > 0: q, k and v are contiguous views that start ``off``
+        elements into their buffers, called through ``ops.flash_attention``
+        (which hands B9 aligned copies of unaligned bf16 views)."""
+        def view(t):
+            flat = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+            flat[off:] = t.flatten()
+            return flat[off:].view(t.shape)
+
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
-        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if off:
+            q, k, v = view(q), view(k), view(v)
+            before = fa.flash_attention.launches
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            if fa.flash_attention.launches != before + 1:
+                fail("ops.flash_attention on unaligned views did not launch "
+                     "B9")
+        else:
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
         torch.cuda.synchronize()
         label = (f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} D={d} causal={causal}"
-                 f" window={window} {str(dtype)[6:]}")
+                 f" window={window} {str(dtype)[6:]}"
+                 f"{f' offset={off} (ops)' if off else ''}")
         diff = (out.float() - want).abs()
         err = diff.max().item()
         if dtype == torch.float32:
@@ -422,6 +478,10 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
             check_b9(1, s_len, s_len, 8, 2, d, torch.bfloat16)
     check_b9(2, 200, 200, 8, 2, 128, torch.bfloat16)
     check_b9(1, 200, 333, 8, 2, 64, torch.bfloat16, causal=False)
+    # bf16 views one element past a 16-byte boundary, through ops (the
+    # reference's ops.flash_attention takes any array)
+    check_b9(2, 128, 128, 8, 2, 64, torch.bfloat16, off=1)
+    check_b9(1, 200, 200, 8, 2, 128, torch.bfloat16, window=64, off=3)
     # the path's shapes: the prefill of 128 tokens (and its window run;
     # f32 on the path, bf16 as the twin), the bf16 serving prefill of
     # 512, then qwen3's prefill shape
@@ -1092,7 +1152,7 @@ def main() -> None:
     from repro_torch.faults import compile_plan
     from repro_torch.faults.robust import sorted_weights
     from repro_torch.hierarchy import mixing as hier
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import cluster_mix as clm
     from repro_torch.kernels import cnd_sketch as cs
     from repro_torch.kernels import consensus_mix as cm
@@ -1108,10 +1168,22 @@ def main() -> None:
             if "registers" in ln or "spill" in ln]
     print(f"build {secs:.1f}s sources={sorted(logs)} "
           f"ptxas={' | '.join(regs)}", flush=True)
-    for lib in ("consensus_mix", "rwkv6_scan"):
+    for lib in ("consensus_mix", "rwkv6_scan", "robust_agg"):
         for name, n_regs, st, ld in ptxas_kernels(logs[lib]):
             print(f"ptxas {lib} {name} registers={n_regs} "
                   f"spill_stores={st} spill_loads={ld}", flush=True)
+            if lib == "robust_agg" and (st or ld):
+                fail(f"B7 kernel {name} spills ({st} bytes stored, {ld} "
+                     f"loaded)")
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build.BUILD_DIR / "librobust_agg.so")], capture_output=True,
+        text=True, check=True, timeout=120).stdout
+    n_ins, n_steps = walk_loop(sass)
+    if n_steps == 0:
+        fail("no loop of B7's group walk reads pairs with LDS.128")
+    print(f"sass robust_agg group walk loop instructions={n_ins} "
+          f"steps={n_steps} per_step={n_ins / n_steps:.2f}", flush=True)
 
     nodes4 = paper_nodes(4)
     data4, items4 = node_arrays(nodes4)
@@ -1444,6 +1516,43 @@ def main() -> None:
               f"non-finite payloads max_abs_err={err:.3e}", flush=True)
         rows["robust_agg"]["max_abs_err"] = max(
             rows["robust_agg"]["max_abs_err"], err)
+    # the shared-memory plan's edges at P=1,024: K=1 (the own slot only),
+    # K=17 (the widest column walk), K=33 (a second receiver group of one),
+    # K=1024 (one block an SM, 128 KB of transposed weights); and at the
+    # fleet's K=256 and P. Each with
+    # a mask of density 0.6 (one drained row, one own slot masked off) and
+    # an all-live mask, and with the trimmed mean and a W that is not a
+    # band: random non-negative position weights, half of them zero, each
+    # row summing to 1. (Weights of both signs cancel to outputs near 0 on
+    # which two f32 summation orders differ by more than any relative
+    # tolerance holds.)
+    def scattered_weights(k):
+        w = torch.rand((k, k), generator=gen, device=dev)
+        w = w * (torch.rand((k, k), generator=gen, device=dev) < 0.5)
+        return w / w.sum(dim=1, keepdim=True).clamp_min(1e-6)
+
+    for k, p_k in ((1, 1024), (17, 1024), (33, 1024), (1024, 1024),
+                   (ROBUST_K, P)):
+        buf = torch.randn((k, p_k), generator=gen, device=dev)
+        sent = torch.randn((k, p_k), generator=gen, device=dev)
+        sparse = (torch.rand((k, k), generator=gen, device=dev) < 0.6) | \
+            torch.eye(k, dtype=torch.bool, device=dev)
+        if k > 1:
+            sparse[k // 2] = False
+            sparse[k - 1, k - 1] = False
+        for label, mask in (("density 0.6", sparse.to(torch.float32)),
+                            ("all live", torch.ones((k, k), device=dev))):
+            for rule, w in (
+                    ("trimmed_mean trim=1",
+                     sorted_weights(mask, "trimmed_mean", 1)),
+                    ("non-band W", scattered_weights(k))):
+                err = check(f"robust_agg K={k} P={p_k} {label} {rule}",
+                            ra.robust_agg(w, mask, buf, sent),
+                            ref.robust_agg(w, mask, buf, sent))
+                print(f"check robust_agg K={k} P={p_k} mask {label} {rule} "
+                      f"max_abs_err={err:.3e}", flush=True)
+                rows["robust_agg"]["max_abs_err"] = max(
+                    rows["robust_agg"]["max_abs_err"], err)
     del buf, sent
 
     # B8 at rows 8,192 with N=8 in f32 and bf16, then at the paper MLP's
@@ -1598,7 +1707,6 @@ def main() -> None:
     # the ring's CND weights: eq. 5 node by node, which the trainer's B1
     # computes for all nodes at once.
     from repro_torch.core import consensus, flatten
-    from repro_torch.kernels import ops
     tr4 = cdfl.build_trainer(loss, fed_k4, train)
     eta4, gamma4 = tr4.mixing(cdfl4)
     buf4 = cdfl4.buf
@@ -2103,7 +2211,19 @@ def main() -> None:
     gen_idx = torch.Generator().manual_seed(9)
     reset_counts()
     state = tr.init(p0, items256)
-    state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx)
+    # the warm-up round (faulted like every round) records B7's inputs of
+    # the fleet's first exchange: its own Manhattan mask, checked below
+    first = {}
+    real_agg = ops.robust_agg
+
+    def record_first(weights, mask, buf, sent):
+        if not first:
+            first.update(weights=weights.clone(), mask=mask.clone(),
+                         buf=buf.clone(), sent=sent.clone())
+        return real_agg(weights, mask, buf, sent)
+
+    with unittest.mock.patch.object(ops, "robust_agg", record_first):
+        state, _ = tr.run_rounds(state, data_dev, 1, generator=gen_idx)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics = tr.run_rounds(state, data_dev, FAULT_ROUNDS,
@@ -2122,7 +2242,11 @@ def main() -> None:
     if not torch.isfinite(state.buf).all():
         fail("robust fleet: non-finite params")
     busy_ms = sum(busy.values())
+    # B7's kernels (csrc/robust_agg.cu) are all named robust_agg_*
     b7_ms = sum(v for n, v in busy.items() if "robust_agg" in n)
+    if b7_ms == 0:
+        fail("profiled robust fleet round launched B7 but no robust_agg "
+             "kernel shows device time")
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
     health = metrics["health"].cpu().numpy()
     print(f"path robust fleet K={ROBUST_K} Manhattan trimmed_mean faults="
@@ -2136,6 +2260,16 @@ def main() -> None:
           f"{busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} B7_ms="
           f"{b7_ms:.4f} B7_share_of_busy={b7_ms / busy_ms:.4f} device_events="
           f"{n_dev} top={[(n, round(v, 4)) for n, v in top]}", flush=True)
+    # (a comparison launch: the path's counts were read above)
+    err = check(f"robust_agg robust fleet K={ROBUST_K} first round's mask",
+                ra.robust_agg(**first), ref.robust_agg(**first))
+    rows["robust_agg"]["max_abs_err"] = max(
+        rows["robust_agg"]["max_abs_err"], err)
+    print(f"check robust_agg robust fleet K={ROBUST_K} P={P} first faulted "
+          f"round's Manhattan mask ({int(first['mask'].sum().item())} live "
+          f"of {ROBUST_K * ROBUST_K}) max_abs_err={err:.3e} (rtol={RTOL} "
+          f"atol={ATOL})", flush=True)
+    first.clear()
     del data_dev
     _, _, _, diff, _ = drive(dataclasses.replace(fed, num_nodes=64), 3, 10,
                              None, data64, items64, check_loss=False)

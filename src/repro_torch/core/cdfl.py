@@ -142,7 +142,8 @@ def _freeze_rows(new, old, keep: torch.Tensor):
 
 
 def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
-                  device=None, eval_fn: Optional[Callable] = None) -> Trainer:
+                  eval_fn: Optional[Callable] = None, *,
+                  device=None) -> Trainer:
     """``loss_fn(params, batch) -> (K,)`` per-node losses, for node-stacked
     parameter views and a batch whose leaves are ``(K, B, ...)``.
     ``eval_fn(params) -> (K,)``, for node-stacked parameter views, adds a

@@ -51,6 +51,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "robust_agg": {
         "repro_robust_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_robust_agg_scratch_words": [_I],
     },
     "flash_attention": {
         "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -123,26 +123,38 @@ def cnd_popcount(bitmaps) -> torch.Tensor:
     return ref.cnd_popcount(bitmaps)
 
 
+def tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and, in bf16, starting on a 16-byte boundary (what
+    the bf16 B9 kernel's TMA loads read): a bf16 view at any other offset
+    is copied, every other tensor passed as it is."""
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window=None) -> torch.Tensor:
     """Online-softmax GQA attention (B9): q (B, Sq, H, D), k/v (B, Sk, KV,
     D) -> (B, Sq, H, D) in q's dtype, q at position 0, scale ``D**-0.5``,
-    causal and sliding-window masks."""
+    causal and sliding-window masks. Any view is taken: B9 gets aligned
+    copies of bf16 views that are not 16-byte aligned."""
     if _on_cuda(q):
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
+        return _fa.flash_attention(tma_aligned(q), tma_aligned(k),
+                                   tma_aligned(v), causal=causal,
                                    window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def rwkv6_scan(r, k, v, w, u, s0=None, chunk: int = 16):
+def rwkv6_scan(r, k, v, w, u, chunk: int = 32, s0=None):
     """Chunked RWKV6 wkv scan (B10): r/k/v/w (B, S, H, D), u (H, D), s0
     (B, H, D, D) or None (zeros) -> (y (B, S, H, D) f32, final state
     (B, H, D, D) f32). w, u and s0 are taken in f32, r/k/v in their own
-    dtype; S a multiple of ``chunk``."""
+    dtype; S a multiple of ``chunk``. The reference's order and default
+    chunk, then the port's initial state."""
     if _on_cuda(r):
         f32 = [None if t is None else t.float().contiguous()
                for t in (w, u, s0)]
         return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
                               *f32, chunk=chunk)
-    return ref.rwkv6_scan(r, k, v, w, u, s0, chunk)
+    return ref.rwkv6_scan(r, k, v, w, u, s0=s0, chunk=chunk)

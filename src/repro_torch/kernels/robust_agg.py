@@ -45,12 +45,15 @@ def robust_agg(weights: torch.Tensor, mask: torch.Tensor, buf: torch.Tensor,
     multiple of 128 (the flat buffer's lane padding)."""
     dev = _check_cuda(weights, mask, buf, sent)
     k, p = check_args(weights, mask, buf, sent)
-    bits = torch.empty((k, (k + 31) // 32), dtype=torch.int32, device=dev)
+    lib = _build.library(_LIB)
+    # the packed mask and W transposed by receiver group
+    scratch = torch.empty((lib.repro_robust_agg_scratch_words(k),),
+                          dtype=torch.int32, device=dev)
     out = torch.empty_like(buf)
     fn = "repro_robust_agg"
-    code = _build.library(_LIB).repro_robust_agg(
+    code = lib.repro_robust_agg(
         weights.data_ptr(), mask.data_ptr(), buf.data_ptr(), sent.data_ptr(),
-        bits.data_ptr(), out.data_ptr(), k, p, _stream(dev))
+        scratch.data_ptr(), out.data_ptr(), k, p, _stream(dev))
     robust_agg.launches += 1
     _build.check(_LIB, fn, code)
     return out

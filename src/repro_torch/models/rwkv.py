@@ -116,7 +116,7 @@ def chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     """The chunkwise-parallel wkv, the same function as
     :func:`scan_reference`: kernel B10 on the card, its plain version on
     the CPU (:func:`repro_torch.kernels.ops.rwkv6_scan`)."""
-    return ops.rwkv6_scan(r, k, v, w, u, s0, chunk)
+    return ops.rwkv6_scan(r, k, v, w, u, chunk=chunk, s0=s0)
 
 
 def forward(params, cfg: ModelConfig, x, state: RwkvState | None = None):

@@ -298,3 +298,48 @@ def test_wrapper_refuses_bf16_tensors_off_a_16_byte_boundary(name,
         tfa.flash_attention(args["q"], args["k"], args["v"])
     assert tfa.flash_attention.launches == before
     tfa.check_aligned(**{name: flat[8:8 + n].view(shapes[name])})
+
+
+def test_tma_aligned_copies_only_unaligned_bf16_views():
+    """``ops.tma_aligned`` gives B9 an aligned copy, equal in value, of a
+    bf16 view one element past a 16-byte boundary; an aligned bf16 view
+    and an f32 view pass as they are, a strided view becomes contiguous."""
+    flat = torch.arange(1, 1 + 2 * 4 * 32 + 8, dtype=torch.float32)
+    flat16 = flat.to(torch.bfloat16)
+    view = flat16[1:1 + 2 * 4 * 32].view(2, 4, 32)
+    assert view.data_ptr() % 16 == 2
+    got = ops.tma_aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    aligned = flat16[8:8 + 2 * 4 * 32].view(2, 4, 32)
+    assert ops.tma_aligned(aligned).data_ptr() == aligned.data_ptr()
+    f32 = flat[1:1 + 2 * 4 * 32].view(2, 4, 32)
+    assert ops.tma_aligned(f32).data_ptr() == f32.data_ptr()
+    strided = torch.arange(2 * 4 * 64).to(torch.bfloat16).view(
+        2, 4, 64)[..., ::2]
+    got = ops.tma_aligned(strided)
+    assert got.is_contiguous() and torch.equal(got, strided)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_ops_hands_b9_aligned_copies_of_unaligned_bf16_views(name,
+                                                            monkeypatch):
+    """The reference's ``ops.flash_attention`` takes any array: the port's
+    gives the kernel wrapper, which refuses views off a 16-byte boundary,
+    aligned copies of them (the kernel still runs; no plain fallback)."""
+    seen = {}
+
+    def kernel(q, k, v, *, causal, window):
+        tfa.check_aligned(q=q, k=k, v=v)
+        seen.update(q=q, k=k, v=v)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(ops._fa, "flash_attention", kernel)
+    shapes = {"q": (1, 8, 4, 32), "k": (1, 8, 2, 32), "v": (1, 8, 2, 32)}
+    args = {n: torch.randn(s).to(torch.bfloat16) for n, s in shapes.items()}
+    n = int(np.prod(shapes[name]))
+    flat = torch.randn(n + 8).to(torch.bfloat16)
+    args[name] = flat[1:1 + n].view(shapes[name])
+    ops.flash_attention(args["q"], args["k"], args["v"])
+    assert torch.equal(seen[name], args[name])
+    assert seen[name].data_ptr() != args[name].data_ptr()

@@ -184,3 +184,177 @@ def test_wrapper_checks_reject_bad_shapes_before_any_launch():
     with pytest.raises(ValueError, match="outside"):
         tra.check_args(torch.zeros((1025, 1025)), torch.zeros((1025, 1025)),
                        big, big)
+
+
+# -- the CUDA kernel's receiver-group walk, emulated in numpy -------------
+
+def _sort_key(x):
+    """csrc/robust_agg.cu::sort_key: a uint32 that sorts like the float,
+    NaN last."""
+    u = x.view(np.uint32)
+    key = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(x), np.uint32(0xFFFFFFFF), key).astype(np.uint32)
+
+
+def _key_value(key):
+    u = np.where(key & np.uint32(0x80000000), key & np.uint32(0x7FFFFFFF),
+                 ~key)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _scrub(v):
+    return np.where(np.isfinite(v), v, np.float32(0)).astype(np.float32)
+
+
+def _group_walk(weights, mask, buf, sent):
+    """The index arithmetic of ``group_walk_kernel``, vectorised over the
+    columns: each column's (key, sender) pairs sorted once; per receiver r
+    the walk row of (scrubbed value, live) pairs (r's own sender slot
+    cleared, padded to an even length), the branch-free lower bound T of
+    r's own key (-1 when the own slot is masked off), then for every slot s
+
+        at = s == T: own_pos = pos; pos += at
+        live: acc += W[r, pos] * v; pos += live
+
+    and W[r, own_pos] * scrub(own) after the walk (own_pos = pos when T is
+    past the row)."""
+    k, p = buf.shape
+    kr = k + (k & 1)
+    pairs = (_sort_key(sent).astype(np.uint64) << np.uint64(32)) | \
+        np.arange(k, dtype=np.uint64)[:, None]
+    pairs = np.sort(pairs, axis=0)
+    keys = (pairs >> np.uint64(32)).astype(np.uint32)
+    sender = (pairs & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    vals = _scrub(_key_value(keys))
+    cols = np.arange(p)
+    w_pad = np.concatenate([weights, np.zeros((k, 1), np.float32)], axis=1)
+    out = np.zeros((k, p), np.float32)
+    for r in range(k):
+        hears = (mask[r] > 0) & (np.arange(k) != r)
+        live_rows = np.concatenate([hears[sender],
+                                    np.zeros((kr - k, p), bool)])
+        val_rows = np.concatenate([vals, np.zeros((kr - k, p), np.float32)])
+        own = buf[r]
+        own_key = _sort_key(own)
+        lo, n = np.zeros(p, np.int64), k
+        while n > 1:
+            half = n >> 1
+            lo = np.where(keys[lo + half, cols] < own_key, lo + half, lo)
+            n -= half
+        lo = lo + (keys[lo, cols] < own_key)
+        own_live = mask[r, r] > 0
+        t = lo if own_live else np.full(p, -1)
+        pos, own_pos = np.zeros(p, np.int64), np.zeros(p, np.int64)
+        acc = np.zeros(p, np.float32)
+        for s in range(kr):
+            at = t == s
+            own_pos = np.where(at, pos, own_pos)
+            pos = pos + at
+            live = live_rows[s]
+            acc = np.where(live, w_pad[r, pos] * val_rows[s] + acc, acc)
+            pos = pos + live
+        own_pos = np.where(t == kr, pos, own_pos)
+        if own_live:
+            acc = acc + w_pad[r, own_pos] * _scrub(own)
+        out[r] = acc
+    return out
+
+
+def _walk_inputs(k, seed, p=128):
+    """Values on a coarse grid in the first half of the columns (ties
+    between the own slot and senders, and among senders), live -inf, +inf
+    and NaN payloads, an empty row, a row
+    whose own slot is masked off, density about 0.6."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(-4, 5, size=(k, p)).astype(np.float32) / 2
+    sent = rng.integers(-4, 5, size=(k, p)).astype(np.float32) / 2
+    sent[:, p // 2:] += rng.normal(size=(k, p - p // 2)).astype(np.float32)
+    if k > 3:
+        sent[1, :40] = np.inf
+        sent[2, 20:60] = -np.inf
+        sent[3, 50:90] = np.nan
+        buf[0, 5:15] = -np.inf
+    mask = (rng.random((k, k)) < 0.6) | np.eye(k, dtype=bool)
+    if k > 1:
+        mask[k // 2] = False                 # an empty row
+        mask[k - 1, k - 1] = False           # own slot masked off
+    return buf, sent, mask
+
+
+@pytest.mark.parametrize("rule", ["median", "trim1", "trim2", "random"])
+@pytest.mark.parametrize("k", [1, 8, 33, 100])
+def test_group_walk_emulation_matches_plain_and_xla(k, rule):
+    buf, sent, mask = _walk_inputs(k, seed=k * 7 + len(rule))
+    tmask = torch.tensor(mask).to(torch.float32)
+    if rule == "random":                     # position weights, not a band
+        w = np.random.default_rng(k).normal(size=(k, k)).astype(np.float32)
+        tw = torch.tensor(w)
+    else:
+        mode, trim = (("median", 0) if rule == "median"
+                      else ("trimmed_mean", int(rule[-1])))
+        tw = trobust.sorted_weights(tmask, mode, trim)
+    got = _group_walk(tw.numpy(), mask.astype(np.float32), buf, sent)
+    assert np.isfinite(got).all()
+    plain = ref.robust_agg(tw, tmask, torch.tensor(buf), torch.tensor(sent))
+    np.testing.assert_allclose(got, plain.numpy(), atol=TOL, rtol=TOL)
+    xla = robust_agg_xla(jnp.asarray(tw.numpy()), jnp.asarray(mask),
+                         jnp.asarray(buf), jnp.asarray(sent))
+    np.testing.assert_allclose(got, np.asarray(xla), atol=TOL, rtol=TOL)
+    if k > 1:
+        assert (got[k // 2] == 0).all()     # the empty row
+
+
+# -- the CUDA kernel's bitonic schedule, emulated -------------------------
+
+THREADS = 256   # csrc/robust_agg.cu::kThreads
+
+
+def _sort_tile(tile, kp):
+    """``sort_columns`` on a tile of columns of kp elements: thread e % 256
+    of warp (e % 256) // 32 owns pair e = (column e >> log2(kp/2), pair
+    e & (kp/2 - 1)). A stage of a stride of 64 or more has a block barrier
+    before and after it; between the others only ``__syncwarp``, so from
+    one block barrier to the next every element must stay with one warp."""
+    half = kp // 2
+    if half == 0:
+        return
+    lh = half.bit_length() - 1
+    owner = {}
+    size = 2
+    while size <= kp:
+        st = size >> 1
+        while st > 0:
+            if st >= 64:
+                owner = {}
+            for e in range(half * len(tile)):
+                col, j = tile[e >> lh], e & (half - 1)
+                lo = 2 * j - (j & (st - 1))
+                a, b = col[lo], col[lo + st]
+                up = (lo & size) == 0
+                col[lo], col[lo + st] = (min(a, b), max(a, b)) if up else \
+                    (max(a, b), min(a, b))
+                if st < 64:
+                    warp = (e % THREADS) // 32
+                    for x in (lo, lo + st):
+                        assert owner.setdefault((e >> lh, x), warp) == warp
+            st >>= 1
+        size <<= 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 13, 16, 33, 100, 256, 300,
+                               1024])
+def test_bitonic_schedule_sorts_key_sender_pairs(k):
+    """The kernel's sort of (key << 32 | sender) words over a tile of
+    columns (padding to a power of two included) ascends every column, and
+    its barrier-free stages keep each element to one warp."""
+    rng = np.random.default_rng(k)
+    kp = 1 << (k - 1).bit_length()
+    tc = max(1, min(32, 4096 // kp))
+    tile = []
+    for _ in range(tc):
+        keys = _sort_key(rng.integers(-3, 4, k).astype(np.float32))
+        tile.append([int(key) << 32 | i for i, key in enumerate(keys)] +
+                    [(1 << 64) - 1] * (kp - k))
+    want = [sorted(col) for col in tile]
+    _sort_tile(tile, kp)
+    assert tile == want

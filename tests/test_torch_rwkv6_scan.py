@@ -82,7 +82,7 @@ def test_plain_b10_bf16_inputs_are_upcast():
     r, k, v, w, u, s0 = (torch.tensor(a) for a in
                          _inputs(2, 32, 2, 64, 9, "model"))
     r16, k16, v16 = (t.to(torch.bfloat16) for t in (r, k, v))
-    y, sf = ops.rwkv6_scan(r16, k16, v16, w, u, s0)
+    y, sf = ops.rwkv6_scan(r16, k16, v16, w, u, s0=s0, chunk=16)
     want_y, want_s = ref.rwkv6_scan(r16.float(), k16.float(), v16.float(),
                                     w, u, s0)
     assert y.dtype == torch.float32
@@ -94,7 +94,7 @@ def test_ops_dispatch_cpu_to_the_plain_version():
                          _inputs(1, 32, 2, 32, 3, "model"))
     before = trw.rwkv6_scan.launches
     for state in (None, s0):
-        got = ops.rwkv6_scan(r, k, v, w, u, state, chunk=16)
+        got = ops.rwkv6_scan(r, k, v, w, u, s0=state, chunk=16)
         want = ref.rwkv6_scan(r, k, v, w, u, state, chunk=16)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     meta = torch.empty((1, 16, 2, 32), device="meta")
