@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Phases: the device; the build of every CUDA kernel from
-``src/repro_torch/csrc``, with ptxas's registers and spills for each
-instantiation of B1/B2/B8, of B10 and of B7 (which must not spill); the
+``src/repro_torch/csrc``, with each library's digest (the hash of its
+source and flags it is keyed on) and ptxas's registers and spills for each
+instantiation of B1/B2/B8, of B10, of B5/B6 and of B7 (B5/B6 and B7 must
+not spill); the
 per-round mixing stacks of the K=1024 vehicular fleet (Manhattan
 mobility, sparse top-8 and hierarchical), built once on the host and
 timed on their own line; each kernel held
 against its plain PyTorch version at the shapes of the main path, with
-CUDA-event timings (B5/B6 on the fleet's own neighbor tables; B1/B2 also
+CUDA-event timings (B5/B6 on the fleet's own neighbor tables: B6 without
+a plan at the faulted sparse exchange's shape, then staged by the
+hierarchical stack's plan, held bit for bit to its walk and with a NaN
+behind a zero-weight slot, each staged row with its staged rows a tile
+and the plan's build time; B1/B2 also
 at the K=1024 fleet's dense exchange, and held over a sweep of K, P and
 unaligned views that reaches every path of their tiled kernel); the
 paper's C-DFL path at K=4 (cdfl, then fedavg), each checked against the
@@ -65,8 +71,9 @@ by block from the same input; teacher-forced decode, 16 generated tokens,
 one profiled decode step) and in f32 (128
 prompt tokens through B10 and a ragged 120 through the sequential scan,
 each against teacher-forced decode), and ``serve.main --arch rwkv6-7b``
-at smoke width on the card against the CPU; the kernel table (ten
-kernels) as one JSON line; and the verdict as the last line. Every path
+at smoke width on the card against the CPU; the loaded libraries by
+digest; the kernel table (ten kernels) as one JSON line; and the verdict
+as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
 after. Exits non-zero, with no verdict, when CUDA is absent or any check
 fails.
@@ -262,6 +269,15 @@ def b1_ms(busy: dict) -> float:
     return sum(v for n, v in busy.items() if n.split("<")[0] in B1_KERNELS)
 
 
+def b6_ms(busy: dict) -> float:
+    """Device ms of B6's kernels in a ``device_profile`` map: the staged
+    walk, and the walk with a per-node step size (``gather_mix_kernel``'s
+    last template argument ``true``; B5 instantiates it ``false``)."""
+    return sum(v for n, v in busy.items()
+               if n.startswith("staged_mix_kernel")
+               or (n.startswith("gather_mix_kernel") and "true>" in n))
+
+
 def ptxas_kernels(log: str) -> list[tuple[str, int, int, int]]:
     """(mangled kernel name, registers, spill-store bytes, spill-load
     bytes) for each kernel in an ``nvcc -Xptxas -v`` log."""
@@ -383,7 +399,7 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
     # core instructions: HGMMA is Hopper's wgmma in the machine code.
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(_build.BUILD_DIR / "libflash_attention.so")],
+                           str(_build.library_path("flash_attention"))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
@@ -1168,16 +1184,21 @@ def main() -> None:
             if "registers" in ln or "spill" in ln]
     print(f"build {secs:.1f}s sources={sorted(logs)} "
           f"ptxas={' | '.join(regs)}", flush=True)
-    for lib in ("consensus_mix", "rwkv6_scan", "robust_agg"):
+    # each library is keyed on its source's bytes and the nvcc flags
+    # (kernels/_build.py): these digests tie a result to its source
+    print("build digests " + " ".join(
+        f"{name}={_build.digest(name)}" for name in sorted(logs)),
+        flush=True)
+    for lib in ("consensus_mix", "rwkv6_scan", "robust_agg", "sparse_mix"):
         for name, n_regs, st, ld in ptxas_kernels(logs[lib]):
             print(f"ptxas {lib} {name} registers={n_regs} "
                   f"spill_stores={st} spill_loads={ld}", flush=True)
-            if lib == "robust_agg" and (st or ld):
-                fail(f"B7 kernel {name} spills ({st} bytes stored, {ld} "
+            if lib in ("robust_agg", "sparse_mix") and (st or ld):
+                fail(f"{lib} kernel {name} spills ({st} bytes stored, {ld} "
                      f"loaded)")
     sass = subprocess.run(
         [str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass",
-         str(_build.BUILD_DIR / "librobust_agg.so")], capture_output=True,
+         str(_build.library_path("robust_agg"))], capture_output=True,
         text=True, check=True, timeout=120).stdout
     n_ins, n_steps = walk_loop(sass)
     if n_steps == 0:
@@ -1426,33 +1447,112 @@ def main() -> None:
                extra={"bytes_once": once, "bytes_gather": gather,
                       "library": "torch.sparse.mm(csr eta, f32 wire), "
                                  "neighbor sum only"})
+    # B6 without a plan: the faulted sparse exchange (core/transport.py's
+    # `sent` branch), K=1024 top-8, bf16 payloads that differ from the bf16
+    # self payload, one step size broadcast to every node
+    other = torch.randn((FLEET_K, P), generator=gen, device=dev)
+    idx, val = sp0
+    k, d = idx.shape
+    g_all = fleet["sparse"][2][0].reshape(1).expand(k).contiguous()
+    wire, wself = other.to(torch.bfloat16), master.to(torch.bfloat16)
+    err = check("cluster_mix sparse sent (walk)",
+                clm.cluster_mix(idx, val, master, wself, wire, g_all),
+                ref.cluster_mix(idx, val, master, wself, wire, g_all))
+    once = 8 * k * d + (4 + 2 + 2 + 4) * k * P
+    a_csr, w32 = csr(idx, val), wire.float()
+    record("cluster_mix", f"K={k} D={d} P={P} wire=bfloat16 (faulted sparse "
+           f"exchange, no plan: the walk, Manhattan round 0)", err,
+           lambda: clm.cluster_mix(idx, val, master, wself, wire, g_all),
+           lambda: ref.cluster_mix(idx, val, master, wself, wire, g_all),
+           lambda: torch.sparse.mm(a_csr, w32), once,
+           2 * k * d * P + 4 * k * P, F32_OPS_PER_S, lib_graph=False,
+           extra={"bytes_once": once, "rows_per_tile": k * d,
+                  "library": "torch.sparse.mm(csr eta, f32 wire), "
+                             "neighbor sum only"})
+
+    # B6 with the hierarchical stack's plan (the intra tier and the re-merge
+    # bursts): the staged walk. The plan's cost is its build on the host
+    # for the fleet's 17-round horizon (inside the stack build above);
+    # rows_per_tile counts the wire rows a column tile stages, against the
+    # K * Di the walk gathers.
     idx, val = h0.intra
     k, d = idx.shape
-    gnode = h0.gamma_node
-    other = torch.randn((FLEET_K, P), generator=gen, device=dev)
+    gnode, plan = h0.gamma_node, h0.plan
+    hier_etas = fleet["hierarchical"][1]
+    t0 = time.perf_counter()
+    replan = clm.plan_stack(hier_etas.intra.idx.cpu().numpy(),
+                            hier_etas.cluster.cpu().numpy())
+    plan_s = time.perf_counter() - t0
+    if any(not torch.equal(a.cpu(), b.cpu())
+           for a, b in zip(replan, hier_etas.plan)):
+        fail("the fleet stack's plan differs from a rebuild of it")
+    counts = plan.counts.cpu()
+    staged_rows = int(counts[:, 1].sum())
+    plan_bytes = sum(t.numel() * t.element_size() for t in hier_etas.plan)
+    print(f"plan hierarchical K={k} Di={d} R={FLEET_ROUNDS}: built in "
+          f"{plan_s:.3f}s on the host, {plan_bytes} bytes; round 0: "
+          f"{int((counts[:, 0] > 0).sum())} groups (padded to "
+          f"{counts.shape[0]}), at most {int(counts[:, 0].max())} members "
+          f"and {int(counts[:, 1].max())} rows a group, {staged_rows} rows "
+          f"staged a tile against {k * d} gathered "
+          f"({k * d / staged_rows:.2f}x fewer); zero-weight slots "
+          f"{(val == 0).float().mean().item():.4f} of the table's",
+          flush=True)
+    worst_b6 = 0.0
     for wdt in (torch.float32, torch.bfloat16):
         # the separate self payload, checked with a wire that differs
         wire, wself = other.to(wdt), master.to(wdt)
-        check(f"cluster_mix wire={wdt} (separate self payload)",
-              clm.cluster_mix(idx, val, master, wself, wire, gnode),
-              ref.cluster_mix(idx, val, master, wself, wire, gnode))
+        worst_b6 = max(worst_b6, check(
+            f"cluster_mix wire={wdt} (separate self payload, staged)",
+            clm.cluster_mix(idx, val, master, wself, wire, gnode, plan=plan),
+            ref.cluster_mix(idx, val, master, wself, wire, gnode)))
+        # a NaN in a row that only a zero-weight slot reads poisons the
+        # receivers that list it, as 0 * NaN does in the reference
+        zk, ze = (int(v) for v in (val == 0).nonzero()[0])
+        wire = (master.clone() if wdt == torch.float32
+                else master.to(wdt))
+        wire[idx[zk, ze], 7] = float("nan")
+        master_nan = wire if wdt == torch.float32 else master
+        out = clm.cluster_mix(idx, val, master_nan, wire, wire, gnode,
+                              plan=plan)
+        want = ref.cluster_mix(idx, val, master_nan, wire, wire, gnode)
+        torch.cuda.synchronize()
+        if not (torch.isnan(out[zk, 7])
+                and torch.allclose(out, want, rtol=RTOL, atol=ATOL,
+                                   equal_nan=True)):
+            fail(f"cluster_mix wire={wdt}: a NaN at zero-weight slot "
+                 f"({zk}, {ze}) does not propagate as in the reference")
     for wdt, label in ((torch.float32, "re-merge burst pass"),
                        (torch.bfloat16, "intra tier")):
         wire = master if wdt == torch.float32 else master.to(wdt)
-        out = clm.cluster_mix(idx, val, master, wire, wire, gnode)
-        err = check(f"cluster_mix wire={wdt}", out,
+        out = clm.cluster_mix(idx, val, master, wire, wire, gnode, plan=plan)
+        err = check(f"cluster_mix wire={wdt} (staged)", out,
                     ref.cluster_mix(idx, val, master, wire, wire, gnode))
+        worst_b6 = max(worst_b6, err)
+        walk = clm.cluster_mix(idx, val, master, wire, wire, gnode)
+        torch.cuda.synchronize()
+        if not torch.equal(out, walk):
+            fail(f"cluster_mix wire={wdt}: the staged walk's bits differ "
+                 f"from the walk's in {(out != walk).sum().item()} places")
         once, gather = gather_bytes(k, d, wire)
         a_csr, w32 = csr(idx, val), wire.float()
         record("cluster_mix", f"K={k} Di={d} P={P} wire={str(wdt)[6:]} "
-               f"({label}, per-node gamma, Manhattan round 0)", err,
-               lambda: clm.cluster_mix(idx, val, master, wire, wire, gnode),
+               f"({label}, per-node gamma, staged by the plan, Manhattan "
+               f"round 0)", err,
+               lambda: clm.cluster_mix(idx, val, master, wire, wire, gnode,
+                                       plan=plan),
                lambda: ref.cluster_mix(idx, val, master, wire, wire, gnode),
                lambda: torch.sparse.mm(a_csr, w32), once,
                2 * k * d * P + 4 * k * P, F32_OPS_PER_S, lib_graph=False,
                extra={"bytes_once": once, "bytes_gather": gather,
+                      "rows_per_tile": staged_rows,
+                      "gathers_per_tile": k * d, "plan_build_s": plan_s,
                       "library": "torch.sparse.mm(csr eta, f32 wire), "
                                  "neighbor sum only"})
+    print(f"check cluster_mix staged: separate self payloads, NaN at a "
+          f"zero-weight slot (f32, bf16), bits equal to the walk; worst "
+          f"max|diff|={worst_b6:.3e} within rtol={RTOL} atol={ATOL}",
+          flush=True)
     del master, other
 
     # B7 at the shapes of the platoon (K=8), the card-vs-CPU checks (K=64)
@@ -2027,7 +2127,8 @@ def main() -> None:
             eta_stack=round_slice(etas, slice(timed, timed + 1)),
             gamma_stack=gammas[timed:])
         busy_ms = sum(busy.values())
-        gather_ms = sum(v for n, v in busy.items() if "gather_mix" in n)
+        gather_ms = sum(v for n, v in busy.items()
+                        if "gather_mix" in n or "staged_mix" in n)
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
         print(f"exchange {fmt} K={FLEET_K} round 0: ms={ex_ms:.5f} "
               f"graph_ms={ex_graph_ms:.5f} dense_B1_bound_ms={dense_ms:.5f} "
@@ -2035,7 +2136,9 @@ def main() -> None:
         print(f"profile fleet {fmt} round {timed}: wall_ms={prof_ms:.3f} "
               f"device_busy_ms={busy_ms:.3f} busy_share="
               f"{busy_ms / prof_ms:.4f} gather_kernels_ms={gather_ms:.4f} "
-              f"B1_ms={b1_ms(busy):.4f} device_events={n_dev} top="
+              f"B6_ms={b6_ms(busy):.4f} B6_share="
+              f"{b6_ms(busy) / busy_ms:.4f} B1_ms={b1_ms(busy):.4f} "
+              f"device_events={n_dev} top="
               f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
     del data_dev
 
@@ -2463,10 +2566,13 @@ def main() -> None:
                       "graph_ms": row["graph_ms"],
                       "plain_graph_ms": row["plain_graph_ms"],
                       "library_graph_ms": row["library_graph_ms"],
-                      **{key: row[key] for key in ("bytes_once",
-                                                   "bytes_gather", "library",
-                                                   "flop")
-                         if key in row}})
+                      **{key: row[key] for key in (
+                          "bytes_once", "bytes_gather", "library", "flop",
+                          "rows_per_tile", "gathers_per_tile",
+                          "plan_build_s") if key in row}})
+    print("loaded libraries " + " ".join(
+        f"lib{name}.{key}.so" for name, key in
+        sorted(_build.loaded_digests.items())), flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

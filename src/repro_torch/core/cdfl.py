@@ -92,8 +92,10 @@ class Trainer(NamedTuple):
 
 def round_slice(stack, r):
     """Round ``r`` (an int or a slice of rounds) of a per-round stack: a
-    tensor, or a NamedTuple of them (SparseEta, HierEta) sliced field by
-    field."""
+    tensor, or a NamedTuple of them (SparseEta, HierEta, ClusterPlan)
+    sliced field by field; None (a HierEta without a plan) stays None."""
+    if stack is None:
+        return None
     if isinstance(stack, torch.Tensor):
         return stack[r]
     return type(stack)(*(round_slice(f, r) for f in stack))
@@ -311,12 +313,17 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         if isinstance(eta_stack, hier_lib.HierEta):
             cluster = torch.as_tensor(eta_stack.cluster, device=dev).long()
             _check_indices(cluster, k, "cluster")
+            intra_plan = getattr(eta_stack, "plan", None)
+            if intra_plan is not None:
+                intra_plan = type(intra_plan)(*(
+                    torch.as_tensor(t, device=dev).to(torch.int32)
+                    .contiguous() for t in intra_plan))
             etas = hier_lib.HierEta(
                 cluster, sparse(eta_stack.intra),
                 torch.as_tensor(eta_stack.gamma_node, **f32),
                 sparse(eta_stack.inter),
                 torch.as_tensor(eta_stack.burst, dtype=torch.float32,
-                                device="cpu"))
+                                device="cpu"), intra_plan)
             derive = hier_lib.hier_gamma_stack
         elif isinstance(eta_stack, topology.SparseEta):
             etas = sparse(eta_stack)
@@ -344,6 +351,12 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                     f"{tuple(etas.gamma_node.shape)} burst="
                     f"{tuple(etas.burst.shape)} != {(num_rounds, k)} / "
                     f"{(num_rounds,)}")
+            if (etas.plan is not None and tuple(etas.plan.pos.shape)
+                    != tuple(etas.intra.idx.shape)):
+                raise ValueError(
+                    f"hierarchical stack plan pos "
+                    f"{tuple(etas.plan.pos.shape)} != intra idx "
+                    f"{tuple(etas.intra.idx.shape)}")
         elif hier_cfg is not None:
             raise ValueError(
                 "mixing_format='hierarchical' needs a HierEta stack "

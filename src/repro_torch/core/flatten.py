@@ -143,18 +143,21 @@ def sparse_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 def cluster_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                      gamma_node: torch.Tensor,
                      wire: torch.Tensor | None = None,
-                     wire_self: torch.Tensor | None = None) -> torch.Tensor:
+                     wire_self: torch.Tensor | None = None, *,
+                     plan=None) -> torch.Tensor:
     """Eq. (5) with a PER-NODE step size, the intra-cluster tier of
     hierarchical mixing (kernel B6 on the card):
 
         phi_k = W_k + g_k * (sum_d val_kd W_{idx_kd} - rowsum_k WS_k)
 
     The neighbor term reads ``wire`` (default ``buf``), the self rescale
-    ``wire_self`` (default ``wire``); ``buf`` stays the f32 master."""
+    ``wire_self`` (default ``wire``); ``buf`` stays the f32 master.
+    ``plan``: the table's receiver groups (port-only, see
+    :func:`repro_torch.kernels.ops.cluster_mix`)."""
     w = buf if wire is None else wire
     ws = w if wire_self is None else wire_self
     return ops.cluster_mix(idx, val.to(buf.dtype), buf, ws, w,
-                           gamma_node.to(buf.dtype))
+                           gamma_node.to(buf.dtype), plan=plan)
 
 
 def partial_mix_flat(buf: torch.Tensor, eta, gamma,

@@ -9,16 +9,25 @@
 // H100 has shared-memory atomics, so B3 is the paper's own loop: hash each
 // item H times and atomicOr one bit.
 //
-// * What bounds it on the H100: integer ALU work (H * (f + 1) avalanche
-//   mixes per item, each a few multiplies, xors and shifts) and the shared
-//   memory atomics. The bytes are small: at K=256, n=320, f=16 the items are
-//   5.2 MB and the bitmaps 0.8 MB.
+// * What bounds it on the H100: the bytes are small (at K=256, n=320, f=16
+//   the items are 5.2 MB and the bitmaps 0.8 MB: 1.8 us at 3.35 TB/s), the
+//   integer work about as small (H * (f + 1) avalanche mixes per item, each
+//   about ten integer operations). What held the first kernel back was
+//   latency: a thread hashed one item's H seeds one after another, each a
+//   chain of f + 1 dependent mixes with a runtime prime lookup and a
+//   runtime `% m`, in two passes over n = 320 items of 256 threads.
 // * Design: one block per node. The node's H * m/32 words (3 KB at H=3,
-//   m=8192) live in shared memory; the block's threads stride over the
-//   node's items, each atomicOr lands in shared memory, and the block writes
-//   its bitmaps out once after a barrier. Every node of the trainer is
-//   sketched in one launch. The hash is the exact uint32 arithmetic of
-//   src/repro/core/sketch.py::_mix32, so the bits match bit for bit.
+//   m=8192) live in shared memory; every atomicOr lands there, and the
+//   block writes its bitmaps out once after a barrier. At the path's f = 16
+//   and H = 3 a thread hashes one item, its three chains interleaved (three
+//   independent mixes in flight a step), every step's prime and salt a
+//   compile-time constant, the item's words in four 16-byte loads; a block
+//   of n threads (up to 1024) covers a node in one pass. Any other f or H
+//   takes one (item, seed) chain a thread, n * H threads a block (timed
+//   side by side at the path's shape, slower than the interleaved
+//   chains). m a power of two takes a mask for `% m`. The hash is the
+//   exact uint32 arithmetic of src/repro/core/sketch.py::_mix32, so the
+//   bits match bit for bit. Every node is sketched in one launch.
 // * B4 gives one warp to each bitmap row: __popc per word and a warp
 //   shuffle reduction. It is bound by the bitmap bytes and by its launch.
 #include <cuda_runtime.h>
@@ -26,14 +35,25 @@
 
 namespace {
 
-__constant__ uint32_t kPrimes[5] = {0x9E3779B1u, 0x85EBCA77u, 0xC2B2AE3Du,
-                                    0x27D4EB2Fu, 0x165667B1u};
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kSaltBase = 0x7F4A7C15u;
+constexpr int kMaxThreads = 1024;
 
-// xxhash-style avalanche; the seed is uniform across a warp, so the
-// constant-memory read is a broadcast
-__device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
-  x ^= seed * 0x9E3779B9u + 0x7F4A7C15u;
-  x *= kPrimes[seed % 5u];
+// _mix32's five primes, taken by seed % 5
+__host__ __device__ constexpr uint32_t prime(int i) {
+  return i == 0 ? 0x9E3779B1u
+       : i == 1 ? 0x85EBCA77u
+       : i == 2 ? 0xC2B2AE3Du
+       : i == 3 ? 0x27D4EB2Fu
+                : 0x165667B1u;
+}
+
+// xxhash-style avalanche: mix32(x, seed) = avalanche(x, seed * kGolden +
+// kSaltBase, prime(seed % 5))
+__device__ __forceinline__ uint32_t avalanche(uint32_t x, uint32_t salt,
+                                              uint32_t p) {
+  x ^= salt;
+  x *= p;
   x ^= x >> 15;
   x *= 0x85EBCA77u;
   x ^= x >> 13;
@@ -42,31 +62,90 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t seed) {
   return x;
 }
 
-__global__ void cnd_bitmaps_kernel(const int32_t* __restrict__ items,
+// a node's bitmaps in shared memory: zeroed, one atomicOr per (item, seed)
+// chain, written out once
+__device__ __forceinline__ void set_bit(uint32_t* s_bm, int words, int s,
+                                        uint32_t hv, int m, bool pow2) {
+  const uint32_t x = avalanche(
+      hv, static_cast<uint32_t>(101 + s) * kGolden + kSaltBase,
+      prime((101 + s) % 5));
+  const uint32_t bit = pow2 ? x & static_cast<uint32_t>(m - 1)
+                            : x % static_cast<uint32_t>(m);
+  atomicOr(&s_bm[s * words + (bit >> 5)], 1u << (bit & 31u));
+}
+
+// F features and H seeds known at compile time (the path's f = 16, H = 3):
+// a thread hashes one item's H chains interleaved, every prime and salt a
+// constant; the item's words come in F / 4 16-byte loads
+template <int F, int H>
+__global__ void cnd_bitmaps_unrolled(const int32_t* __restrict__ items,
+                                     uint32_t* __restrict__ out, int n,
+                                     int m) {
+  static_assert(F % 4 == 0, "an item is loaded as 16-byte vectors");
+  extern __shared__ uint32_t s_bm[];   // H * (m / 32) words
+  const int words = m >> 5;
+  for (int w = threadIdx.x; w < H * words; w += blockDim.x) s_bm[w] = 0u;
+  __syncthreads();
+  const int32_t* node = items + (size_t)blockIdx.x * n * F;
+  const bool pow2 = (m & (m - 1)) == 0;
+  for (int it = threadIdx.x; it < n; it += blockDim.x) {
+    const int4* row = reinterpret_cast<const int4*>(node + (size_t)it * F);
+    uint32_t x[F];
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const int4 v = row[q];
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+    uint32_t hv[H];
+#pragma unroll
+    for (int s = 0; s < H; ++s) hv[s] = 0u;
+#pragma unroll
+    for (int j = 0; j < F; ++j) {
+#pragma unroll
+      for (int s = 0; s < H; ++s) {
+        hv[s] = avalanche(hv[s] * 31u + x[j],
+                          static_cast<uint32_t>(s + j) * kGolden + kSaltBase,
+                          prime((s + j) % 5));
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < H; ++s) set_bit(s_bm, words, s, hv[s], m, pow2);
+  }
+  __syncthreads();
+  uint32_t* dst = out + (size_t)blockIdx.x * H * words;
+  for (int w = threadIdx.x; w < H * words; w += blockDim.x) dst[w] = s_bm[w];
+}
+
+// any f and h: a thread hashes one (item, seed) chain, hv = mix32(hv * 31 +
+// row[j], s + j) for j < f, and the block's n * h threads run the node's
+// chains in one pass
+__global__ void cnd_bitmaps_chains(const int32_t* __restrict__ items,
                                    uint32_t* __restrict__ out, int n, int f,
                                    int h, int m) {
   extern __shared__ uint32_t s_bm[];   // h * (m / 32) words
   const int words = m >> 5;
-  const int total = h * words;
-  for (int w = threadIdx.x; w < total; w += blockDim.x) s_bm[w] = 0u;
+  for (int w = threadIdx.x; w < h * words; w += blockDim.x) s_bm[w] = 0u;
   __syncthreads();
   const int32_t* node = items + (size_t)blockIdx.x * n * f;
-  for (int it = threadIdx.x; it < n; it += blockDim.x) {
+  const bool pow2 = (m & (m - 1)) == 0;
+  for (int c = threadIdx.x; c < n * h; c += blockDim.x) {
+    const int s = c / n, it = c - s * n;   // chain c: item it, seed s
     const int32_t* row = node + (size_t)it * f;
-    for (int s = 0; s < h; ++s) {
-      uint32_t hv = 0u;
-      for (int j = 0; j < f; ++j) {
-        hv = mix32(hv * 31u + static_cast<uint32_t>(row[j]),
-                   static_cast<uint32_t>(s + j));
-      }
-      const uint32_t idx =
-          mix32(hv, static_cast<uint32_t>(101 + s)) % static_cast<uint32_t>(m);
-      atomicOr(&s_bm[s * words + (idx >> 5)], 1u << (idx & 31u));
+    const uint32_t base = static_cast<uint32_t>(s) * kGolden + kSaltBase;
+    uint32_t hv = 0u;
+    for (int j = 0; j < f; ++j) {
+      hv = avalanche(hv * 31u + static_cast<uint32_t>(row[j]),
+                     base + static_cast<uint32_t>(j) * kGolden,
+                     prime((s + j) % 5));
     }
+    set_bit(s_bm, words, s, hv, m, pow2);
   }
   __syncthreads();
-  uint32_t* dst = out + (size_t)blockIdx.x * total;
-  for (int w = threadIdx.x; w < total; w += blockDim.x) dst[w] = s_bm[w];
+  uint32_t* dst = out + (size_t)blockIdx.x * h * words;
+  for (int w = threadIdx.x; w < h * words; w += blockDim.x) dst[w] = s_bm[w];
 }
 
 __global__ void popcount_kernel(const uint32_t* __restrict__ bm,
@@ -87,12 +166,24 @@ __global__ void popcount_kernel(const uint32_t* __restrict__ bm,
 
 }  // namespace
 
+// a block of `work` threads rounded up to a warp, at most kMaxThreads
+int block_threads(int work) {
+  return work >= kMaxThreads ? kMaxThreads : (work + 31) / 32 * 32;
+}
+
 extern "C" int repro_cnd_bitmaps(const void* items, void* out, int k, int n,
                                  int f, int h, int m, void* stream) {
   const size_t smem = sizeof(uint32_t) * (size_t)h * (m / 32);
-  cnd_bitmaps_kernel<<<k, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(items), static_cast<uint32_t*>(out), n, f,
-      h, m);
+  const auto* src = static_cast<const int32_t*>(items);
+  auto* dst = static_cast<uint32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f == 16 && h == 3 && (reinterpret_cast<uintptr_t>(items) & 15) == 0) {
+    cnd_bitmaps_unrolled<16, 3><<<k, block_threads(n), smem, s>>>(src, dst,
+                                                                 n, m);
+  } else {
+    cnd_bitmaps_chains<<<k, block_threads(n * h), smem, s>>>(src, dst, n, f,
+                                                             h, m);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

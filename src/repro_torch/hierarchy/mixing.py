@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import flatten, topology
 from repro_torch.hierarchy import clustering, leaders
+from repro_torch.kernels import cluster_mix as clm
 from repro_torch.mobility import links, traces
 from repro_torch.mobility.mixing import _sparse_rule, masked_sparse_stack, \
     side_device, sparse_gamma_stack
@@ -42,13 +43,16 @@ class HierEta(NamedTuple):
     """Per-round two-tier mixing weights; ``(R, ...)`` stacks slice per
     round like :class:`topology.SparseEta`. The intra tier keeps every
     co-member link (``Di`` = largest cluster size - 1) and never points
-    outside the member's cluster."""
+    outside the member's cluster. ``plan`` (port-only) groups the intra
+    table's receivers by cluster for kernel B6; it depends on
+    ``intra.idx`` alone, so edits of the weights keep it."""
 
     cluster: torch.Tensor         # (..., K) int64 cluster id per node
     intra: topology.SparseEta     # (..., K, Di) co-member weights
     gamma_node: torch.Tensor      # (..., K) f32 cluster-local step size
     inter: topology.SparseEta     # (..., K, Dx) leader rows, others zero
     burst: torch.Tensor           # (...,) f32 re-merge flag, on the host
+    plan: clm.ClusterPlan | None = None   # intra receiver groups (B6)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +150,8 @@ def build_hier_stacks(geometry, *, rule: str, ratios, sizes,
                       gamma_cap: float):
     """Geometry stacks -> ``(HierEta (R, ...), gammas (R,))`` on the
     device of ``ratios``/``sizes``. ``gammas`` is the INTER-tier step
-    size; the intra tier's per-node gammas travel inside the HierEta."""
+    size; the intra tier's per-node gammas travel inside the HierEta, with
+    the intra table's plan (its receivers grouped by cluster)."""
     cluster, _, burst, intra_idx, intra_w, inter_idx, inter_w = geometry
     dev = side_device(ratios, sizes)
 
@@ -164,7 +169,8 @@ def build_hier_stacks(geometry, *, rule: str, ratios, sizes,
     h = HierEta(cluster=cl, intra=topology.SparseEta(i1, intra_val),
                 gamma_node=gamma_node,
                 inter=topology.SparseEta(i2, inter_val),
-                burst=torch.as_tensor(np.asarray(burst), dtype=torch.float32))
+                burst=torch.as_tensor(np.asarray(burst), dtype=torch.float32),
+                plan=clm.plan_stack(intra_idx, cluster, dev))
     return h, gammas
 
 
@@ -184,7 +190,9 @@ def hier_static_stacks(adj, *, rule: str, ratios, sizes, gamma_cap: float,
                                                    h.intra.val[0]),
                   h.gamma_node[0], topology.SparseEta(h.inter.idx[0],
                                                       h.inter.val[0]),
-                  torch.zeros((), dtype=torch.float32))
+                  torch.zeros((), dtype=torch.float32),
+                  None if h.plan is None
+                  else clm.ClusterPlan(*(t[0] for t in h.plan)))
     return one, gammas[0]
 
 
@@ -225,7 +233,9 @@ def constant_hier_stacks(h: HierEta, gamma, rounds: int):
         _broadcast(h.gamma_node, rounds),
         topology.SparseEta(_broadcast(h.inter.idx, rounds),
                            _broadcast(h.inter.val, rounds)),
-        _broadcast(h.burst, rounds))
+        _broadcast(h.burst, rounds),
+        None if h.plan is None else clm.ClusterPlan(
+            *(_broadcast(t, rounds) for t in h.plan)))
     g = torch.as_tensor(gamma, dtype=torch.float32,
                         device=h.gamma_node.device)
     return stack, _broadcast(g.reshape(()), rounds)
@@ -264,10 +274,10 @@ def hier_mix_flat(buf: torch.Tensor, h: HierEta, gamma_inter, *,
     """
     out = flatten.cluster_mix_flat(buf, h.intra.idx, h.intra.val,
                                    h.gamma_node, wire=wire,
-                                   wire_self=wire_self)
+                                   wire_self=wire_self, plan=h.plan)
     out = flatten.sparse_mix_flat(out, h.inter.idx, h.inter.val, gamma_inter)
     if burst_passes > 0 and float(h.burst) > 0:
         for _ in range(burst_passes):
             out = flatten.cluster_mix_flat(out, h.intra.idx, h.intra.val,
-                                           h.gamma_node)
+                                           h.gamma_node, plan=h.plan)
     return out

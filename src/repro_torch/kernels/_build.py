@@ -1,9 +1,12 @@
 """Build the CUDA sources under ``src/repro_torch/csrc`` and bind them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` into ``build/repro_torch/lib<name>.so`` at the root of the
-checkout, then loaded with :mod:`ctypes`. A library is rebuilt when it is
-missing or older than its source. Nothing here runs at import time: the
+``nvcc`` into ``build/repro_torch/lib<name>.<digest>.so`` at the root of
+the checkout, then loaded with :mod:`ctypes`. ``<digest>`` hashes the
+source's bytes and the compiler flags, so a library is only ever loaded
+for the exact source it was built from: a library built from another
+state of the source (an older commit, a copied variant) is never taken,
+whatever the files' mtimes say. Nothing here runs at import time: the
 first kernel launch builds what it needs, and :func:`build_all` builds
 every source at once, one ``nvcc`` process per source, all started
 together.
@@ -15,6 +18,7 @@ Every entry point takes raw device pointers and PyTorch's current stream
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -44,10 +48,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "sparse_mix": {
         "repro_sparse_mix_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "repro_sparse_mix_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "repro_cluster_mix_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _P],
-        "repro_cluster_mix_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _P],
+        "repro_cluster_mix_f32": [_P] * 12 + [_I] * 6 + [_P],
+        "repro_cluster_mix_bf16": [_P] * 12 + [_I] * 6 + [_P],
     },
     "robust_agg": {
         "repro_robust_agg": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -71,6 +73,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# source name -> digest of the library loaded for it in this process
+loaded_digests: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -84,13 +88,22 @@ def nvcc() -> str:
                        "are built on a machine with the CUDA toolkit")
 
 
-def _paths(name: str) -> tuple[Path, Path]:
-    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+def digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``'s bytes and the ``nvcc`` flags: the key
+    of the library built from them."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(b"\0")
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of today's ``csrc/<name>.cu`` is (or goes)."""
+    return BUILD_DIR / f"lib{name}.{digest(name)}.so"
 
 
 def _stale(name: str) -> bool:
-    src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    return not library_path(name).exists()
 
 
 def build_all(force: bool = False) -> dict[str, str]:
@@ -104,9 +117,10 @@ def build_all(force: bool = False) -> dict[str, str]:
     compiler = nvcc()
     procs = {}
     for name in names:
-        src, lib = _paths(name)
+        lib = library_path(name)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, lib)
@@ -129,15 +143,18 @@ def library(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    if _stale(name):
+    key = digest(name)
+    path = BUILD_DIR / f"lib{name}.{key}.so"
+    if not path.exists():
         build_all()
-    lib = ctypes.CDLL(str(_paths(name)[1]))
+    lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
+    loaded_digests[name] = key
     return lib
 
 

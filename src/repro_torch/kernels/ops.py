@@ -92,11 +92,17 @@ def sparse_mix(idx, val, master, wire, gamma) -> torch.Tensor:
     return ref.sparse_mix(idx, val, master, wire, gamma)
 
 
-def cluster_mix(idx, val, master, wself, wire, gamma_node) -> torch.Tensor:
+def cluster_mix(idx, val, master, wself, wire, gamma_node, *,
+                plan=None) -> torch.Tensor:
     """Per-node-gamma cluster gather-mix (B6):
-    ``MASTER + g[:, None] * (sum_d VAL W[IDX] - rowsum(VAL) * WSELF)``."""
+    ``MASTER + g[:, None] * (sum_d VAL W[IDX] - rowsum(VAL) * WSELF)``.
+    ``plan`` (port-only), one round's
+    :class:`repro_torch.kernels.cluster_mix.ClusterPlan` of ``idx``, lets
+    the kernel stage each group's rows once; the plain version needs
+    none."""
     if _on_cuda(master):
-        return _clm.cluster_mix(idx, val, master, wself, wire, gamma_node)
+        return _clm.cluster_mix(idx, val, master, wself, wire, gamma_node,
+                                plan=plan)
     return ref.cluster_mix(idx, val, master, wself, wire, gamma_node)
 
 
