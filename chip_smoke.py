@@ -19,8 +19,13 @@ behind a zero-weight slot, each staged row with its staged rows a tile
 and the plan's build time; B1/B2 also
 at the K=1024 fleet's dense exchange, and held over a sweep of K, P and
 unaligned views that reaches every path of their tiled kernel); the
-paper's C-DFL path at K=4 (cdfl, then fedavg), each checked against the
-same run of the port on the CPU; a K=256 bf16-wire fleet, with one round
+launch floor (a one-element ``add_`` timed the same way); the
+paper's C-DFL path at K=4 (cdfl), checked against the same run of the
+port on the CPU; the twin of ``examples/quickstart.py``
+(``repro_torch.examples.quickstart``, through ``Experiment`` and
+``Session``) on the card against the CPU, and run(10) + save + resume +
+run(10) against run(20) on the card, bit for bit; fedavg at K=4 against
+the CPU; a K=256 bf16-wire fleet, with one round
 under the profiler; the twin of ``examples/mobility_platoon.py`` (K=8,
 dense format, checked against the CPU); the sparse and the hierarchical
 K=1024 fleets (1 warm-up round, then 3 repeats of 5 timed rounds, one
@@ -44,15 +49,21 @@ and the paper MLP's (187, 128) rows with N=2), B8 driven through
 ``core/consensus.py`` one-shots, dpsgd and cdfa_m (prefixes 40 and
 23,860, f32 and bf16 wire) at K=4, cdfa_m on a K=256 ring (prefix
 23,560), dpsgd on the K=1024 fleet's stacks (sparse and hierarchical),
-each checked against the CPU, and the paper's Tables 1-4 MLP comparison
-of cdfl, cfa, cdfa_m and dpsgd over 60 rounds (rounds to 80% test
-accuracy per station, reported, not gated); then LLM serving: the count
+each checked against the CPU, and the paper's Tables 1-4 comparison of
+cdfl, cfa, cdfa_m and dpsgd through ``Experiment`` and ``EvalCallback``
+over 60 rounds, MLP and VGG halves (rounds to 80% test accuracy per
+station, reported, not gated; the first 3 rounds checked against the CPU,
+the VGG's with TF32 switched as a process starts; one profiled VGG round;
+one VGG local step against f64 within 1e-4, with its f32 guard bypassed
+as a control that must miss; the VGG's run(10) + save + resume + run(10)
+against run(20) bit for bit); then LLM serving: the count
 of tensor-core (HGMMA) instructions in B9's library, B9 held against its
 plain version (tests/test_kernels.py's sweep, windows, cross attention,
 ragged lengths and rows with no live key, each in f32 and bf16; the bf16
 kernel's tile edges at every head dim; bf16 views off a 16-byte boundary
 through ``ops.flash_attention``; and the path's shapes up to
-qwen3's prefill of B=4 S=2048), qwen3-1.7b at full width in bf16 (4
+qwen3's prefill of B=4 S=2048, f32 at the f32 serving path's B=4
+S=128 with and without its 64-token window timed against SDPA in f32), qwen3-1.7b at full width in bf16 (4
 requests of 512 prompt tokens through the prefill step, the same prompts
 teacher-forced through the serve step, 16 generated tokens; prefill
 logits held against the decode's) and in f32 (128 prompt tokens, with and without a
@@ -80,9 +91,12 @@ fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -128,10 +142,11 @@ FLEET_FAULTS = dict(kinds=("link_drop", "crash", "corrupt", "straggle"),
 # tests/test_faults.py:375, the Byzantine platoon
 BYZ_PLATOON = dict(kind="platoon", speed=20.0, speed_jitter=0.3,
                    radio_range=250.0, dt=2.0, seed=0)
-# benchmarks/paper_tables.py:24-32, the paper's Tables 1-4 (MLP half)
+# benchmarks/paper_tables.py:24-32, the paper's Tables 1-4 (MLP and VGG)
 TABLE_ALGS = ["cdfl", "cfa", "cdfa_m", "dpsgd"]
 TABLE_RATIOS = [0.1, 0.2, 0.4, 0.8]
 TABLE_NOISE = 2.5
+VGG_NOISE = 1.5
 TABLE_ROUNDS = 60
 # LLM serving: qwen3-1.7b at full width (src/repro/configs/qwen3_1_7b.py)
 SERVE_ARCH = "qwen3-1.7b"
@@ -501,10 +516,39 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
     # the path's shapes: the prefill of 128 tokens (and its window run;
     # f32 on the path, bf16 as the twin), the bf16 serving prefill of
     # 512, then qwen3's prefill shape
-    for dtype in both:
-        check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, dtype)
-        check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, dtype,
-                 window=F32_WINDOW)
+    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.bfloat16)
+    check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128, torch.bfloat16,
+             window=F32_WINDOW)
+    # f32 B9 at 9c's shape, timed (every layer of the f32 serving path
+    # launches it), with and without the 64-token window; SDPA in f32 with
+    # TF32 off, the window as a boolean band mask
+    for window in (None, F32_WINDOW):
+        q, k, v = check_b9(4, F32_PROMPT, F32_PROMPT, 16, 8, 128,
+                           torch.float32, window=window)
+        kr = k.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
+        vr = v.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        pos = torch.arange(F32_PROMPT, device=dev)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - (window or F32_PROMPT)))
+        pairs = 4 * 16 * live_pairs(F32_PROMPT, F32_PROMPT, True, window)
+        record("flash_attention", f"B=4 S={F32_PROMPT} H=16 KV=8 D=128 f32 "
+               f"causal window={window}",
+               rows["flash_attention"]["max_abs_err"],
+               lambda: fa.flash_attention(q, k, v, causal=True,
+                                          window=window),
+               lambda: ref.flash_attention(q, k, v, causal=True,
+                                           window=window),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kr, vr, attn_mask=band),
+               2 * (q.numel() * 4 + k.numel() * 4), 4 * 128 * pairs,
+               F32_OPS_PER_S,
+               extra={"live_pairs": pairs,
+                      "library": "torch.nn.functional.scaled_dot_product_"
+                                 "attention(attn_mask=causal band) in f32, "
+                                 "TF32 off, on (B, H, S, D), k/v repeated "
+                                 "to H outside the timing"})
+        del q, k, v, kr, vr, qt
     for s_len in (SERVE_PROMPT, PREFILL_S):
         q, k, v = check_b9(4, s_len, s_len, 16, 8, 128, torch.bfloat16)
         kr = k.repeat_interleave(2, dim=2).transpose(1, 2).contiguous()
@@ -1135,6 +1179,354 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
           flush=True)
 
 
+def quickstart_and_resume(add, expect_counts, dense_only, loss, train, fed_k4,
+                          data4, items4) -> None:
+    """The quickstart's twin through Experiment on the card against the
+    CPU, then run(10) + save + resume + run(10) against run(20) on the
+    card."""
+    from repro_torch import experiment
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.examples import quickstart
+    from repro_torch.models import simple
+
+    # -- 4a. the quickstart's twin through Experiment; resume -------------
+    # src/repro_torch/examples/quickstart.py makes examples/quickstart.py's
+    # calls through the port's Experiment and Session: on the card, then on
+    # the CPU. Then, on the card, run(10) + save + resume in a fresh Session
+    # + run(10) against a straight run(20) of the same experiment: round r
+    # draws its batches from a generator keyed on (seed, r), so the two
+    # must agree bit for bit, Adam moments and step counters included.
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out_card:
+        qs = quickstart.main([])
+    torch.cuda.synchronize()
+    qs_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("quickstart", counts, {
+        "flat_mix": 10, "flat_consensus": 0, "cnd_bitmaps": 1,
+        "cnd_popcount": 1, **dense_only})
+    add(counts)
+    with contextlib.redirect_stdout(io.StringIO()) as out_cpu:
+        qs_cpu = quickstart.main(["--device", "cpu"])
+    diff = (qs.state.buf.cpu() - qs_cpu.state.buf).abs().max().item()
+    if not diff <= 1e-4:
+        fail(f"quickstart: card params differ from the CPU run by "
+             f"{diff:.3e} > 1e-4")
+    lossr = qs.metrics["loss"].mean(dim=1).cpu()
+    if not torch.isfinite(lossr).all() or not lossr[-1] < lossr[0]:
+        fail(f"quickstart: loss did not fall: {lossr.tolist()}")
+    card_lines = out_card.getvalue().splitlines()
+    if card_lines[-1] != out_cpu.getvalue().splitlines()[-1] or \
+            "consensus model" not in card_lines[-1]:
+        fail(f"quickstart: unexpected last line {card_lines[-1]!r}")
+    print(f"path quickstart K=4 (Experiment, Session.run(10)) "
+          f"{card_lines[0]} loss/round="
+          f"{[round(v, 4) for v in lossr.tolist()]} launches={counts} "
+          f"card-vs-cpu max|param diff|={diff:.3e} wall_s={qs_s:.3f}",
+          flush=True)
+    qs_exp = experiment.Experiment.from_parts(
+        loss, lambda g: simple.mlp_init(g, MLP_CONFIG), fed=fed_k4,
+        train=train)
+    check_resume("K=4", qs_exp, data4, items4, add, expect_counts,
+                 dense_only)
+
+
+def check_resume(label, exp, data, items, add, expect_counts, dense_only,
+                 n_items=None) -> None:
+    """run(10) + save + resume in a fresh Session + run(10) against a
+    straight run(20) of ``exp`` on the card, bit for bit: params, Adam
+    moments and step counters, and every metric."""
+    ckpt = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = 20 * exp.fed.local_steps
+    reset_counts()
+    straight = exp.compile(data, items, n_items=n_items).run(20)
+    first = exp.compile(data, items, n_items=n_items)
+    part1 = first.run(10)
+    first.save(str(ckpt))
+    resumed = exp.compile(data, items, n_items=n_items).resume(str(ckpt))
+    part2 = resumed.run(10)
+    counts = read_counts()
+    expect_counts(f"resume {label}", counts, {
+        "flat_mix": 40, "flat_consensus": 0, "cnd_bitmaps": 3,
+        "cnd_popcount": 3, **dense_only})
+    add(counts)
+    shutil.rmtree(ckpt)
+    pairs = [("buf", straight.state.buf, part2.state.buf),
+             ("m", straight.state.opt.m, part2.state.opt.m),
+             ("v", straight.state.opt.v, part2.state.opt.v),
+             ("step", straight.state.opt.step, part2.state.opt.step)]
+    pairs += [(f"metrics {n}", v, torch.cat([part1.metrics[n],
+                                             part2.metrics[n]]))
+              for n, v in straight.metrics.items()]
+    unequal = [n for n, a, b in pairs if not torch.equal(a, b)]
+    if unequal or resumed.rounds_completed != 20 or \
+            not bool((part2.state.opt.step == steps).all()):
+        worst = (straight.state.buf - part2.state.buf).abs().max().item()
+        fail(f"resume {label}: run(10) + save + resume + run(10) differs "
+             f"from run(20) in {unequal} (max |buf diff| {worst:.3e})")
+    print(f"check resume {label} on the card: run(10) + save + resume + "
+          f"run(10) equals run(20) bit for bit "
+          f"({', '.join(n for n, _, _ in pairs)}; Adam steps {steps} a "
+          f"node) launches={counts}", flush=True)
+
+
+def paper_tables(dev, add, expect_counts, dense_only) -> None:
+    """The paper's Tables 1-4, MLP and VGG halves, through Experiment and
+    EvalCallback; a profiled VGG round; the VGG's f32 guard; the VGG's
+    resume."""
+    from repro_torch import experiment
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG, VGG_CONFIG
+    from repro_torch.core import flatten
+    from repro_torch.data import pipeline, redundancy, synthetic
+    from repro_torch.models import simple
+
+    # -- 8. the paper's Tables 1-4 (benchmarks/paper_tables.py:24-140) ----
+    # Through Experiment and EvalCallback, as the table driver runs them:
+    # K=4 ring; NODE_RATIOS through inject_duplicates; the MLP on synthetic
+    # MNIST (noise 2.5, 320 items a station, 10 local steps) and the VGG on
+    # synthetic BIRD (noise 1.5, 120 items a station, 6 local steps), each
+    # with its config's lr, batch, betas and eps and a test set from seed
+    # 99; 60 rounds with per-round test accuracy. cdfl trains on the CND-
+    # deduplicated (ragged) nodes through n_items; its sketches, like every
+    # algorithm's, come from the raw data. compile(rng=0, sample_rng=0).
+    # The run is two Session.run calls (3 + 57 rounds); the card is checked
+    # against the CPU over the first 3. The VGG's 3 rounds run with cuDNN's
+    # and cuBLAS's TF32 switches as a process starts (cuDNN allows TF32):
+    # the package's convolutions must hold f32 on their own. Rounds to 80%
+    # are reported, not gated.
+
+    def pad_cycle(a, n):
+        return np.concatenate([a] * int(np.ceil(n / a.shape[0])))[:n]
+
+    def table_setup(model, alg):
+        """paper_tables._alg_setup through the port: (loss, init, eval_fn
+        of a device, train config, local steps, raw items, data,
+        n_items)."""
+        if model == "mlp":
+            cfg, steps = MLP_CONFIG, 10
+            raw = [redundancy.inject_duplicates(
+                synthetic.synthetic_mnist(seed=i, n=cfg.train_per_node,
+                                          noise=TABLE_NOISE),
+                TABLE_RATIOS[i], seed=i) for i in range(4)]
+            test = synthetic.synthetic_mnist(seed=99, n=cfg.test_per_node * 4,
+                                             noise=TABLE_NOISE)
+            fwd, tloss = simple.mlp_forward, simple.make_mlp_loss(cfg)
+            init = lambda g: simple.mlp_init(g, cfg)
+        else:
+            cfg, steps = VGG_CONFIG, 6
+            raw = [redundancy.inject_duplicates(
+                synthetic.synthetic_bird(
+                    seed=i, n=cfg.train_per_node, num_classes=cfg.num_classes,
+                    image_size=cfg.image_size, noise=VGG_NOISE),
+                TABLE_RATIOS[i], seed=i) for i in range(4)]
+            test = synthetic.synthetic_bird(
+                seed=99, n=cfg.test_per_node * 4, num_classes=cfg.num_classes,
+                image_size=cfg.image_size, noise=VGG_NOISE)
+            fwd, tloss = simple.vgg_forward, simple.make_vgg_loss(cfg)
+            init = lambda g: simple.vgg_init(g, cfg)
+        nodes = ([redundancy.cnd_dedup(d) for d in raw] if alg == "cdfl"
+                 else raw)
+        n_per = np.asarray([d.x.shape[0] for d in nodes])
+        n_max = int(n_per.max())
+        data = {"x": np.stack([pad_cycle(d.x, n_max) for d in nodes]),
+                "y": np.stack([pad_cycle(d.y, n_max) for d in nodes])}
+        n_items = None if (n_per == n_max).all() else n_per
+        raw_items = pipeline.FederatedBatcher(raw, cfg.batch_size,
+                                              steps).node_items()
+        train_cfg = TrainConfig(learning_rate=cfg.learning_rate,
+                                batch_size=cfg.batch_size, beta1=cfg.beta1,
+                                beta2=cfg.beta2, eps=cfg.eps)
+
+        def eval_fn(device):
+            x = torch.as_tensor(test.x, device=device).expand(
+                (4,) + test.x.shape)
+            y = torch.as_tensor(test.y, device=device).expand(
+                (4,) + test.y.shape)
+            return lambda params: simple.accuracy(fwd(params, x), y)
+
+        return (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
+                n_items)
+
+    @contextlib.contextmanager
+    def process_tf32():
+        """TF32 switches as a process starts (cuBLAS off, cuDNN on), the
+        script's restored after."""
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    def rounds_to_80(acc):
+        hit = acc >= 0.8
+        return np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
+                        TABLE_ROUNDS), hit.any(axis=0)
+
+    def vgg_checks(exp, exp_cpu, data, raw_items, n_items, tloss, diff,
+                   cpu_buf3):
+        """One local step of the VGG from the same params and batch: the
+        logits, per-node losses and flat gradient on the card (TF32
+        switched as a process starts, twice: the two must agree bit for
+        bit; then with the package's f32 guard bypassed, the control) and
+        on the CPU in f32, each against the CPU in f64. The card's are
+        gated within 1e-4 of max |value|, and the control must miss that
+        gate (TF32 convolutions miss it by about 10x). And the 3-round
+        drift beside the CPU's own: its 3 rounds from the input moved by
+        one ulp (reported)."""
+        session = exp.compile(data, raw_items, rng=0, sample_rng=0,
+                              n_items=n_items)
+        state = session.state
+        sel = session.batch_indices(0, 1)[0][:, 0]
+        rows_k = torch.arange(4)[:, None]
+        batch = {n: torch.as_tensor(v)[rows_k, sel] for n, v in data.items()}
+
+        def step(device, dtype=torch.float32):
+            buf = state.buf.to(device, dtype).detach().requires_grad_(True)
+            layout = state.layout._replace(
+                dtypes=(dtype,) * len(state.layout.dtypes))
+            params = flatten.unflatten(buf, layout)
+            b = {"x": batch["x"].to(device, dtype), "y": batch["y"].to(device)}
+            logits = simple.vgg_forward(params, b["x"])
+            losses = tloss(params, b)
+            (grad,) = torch.autograd.grad(losses.sum(), buf)
+            return [t.detach().cpu().double() for t in (logits, losses, grad)]
+
+        want = step("cpu", torch.float64)
+        runs = {"cpu f32": step("cpu")}
+        with process_tf32():
+            runs["card"] = step(dev)
+            again = step(dev)
+            with unittest.mock.patch.object(simple, "_exact_conv",
+                                            contextlib.nullcontext):
+                runs["card, guard bypassed"] = step(dev)
+        repeat = all(torch.equal(a, b) for a, b in zip(runs["card"], again))
+        names = ("logits", "losses", "grad")
+        errs = {label: {n: rel_diff(g, w) for n, g, w in zip(names, got, want)}
+                for label, got in runs.items()}
+        shown = "; ".join(
+            f"{label}: " + " ".join(f"{n}={v:.3e}" for n, v in e.items())
+            for label, e in errs.items())
+        if not (max(errs["card"].values()) <= 1e-4 and repeat):
+            fail(f"vgg one step on the card (TF32 as a process starts) "
+                 f"against f64 (max |diff| / max |value| <= 1e-4, two runs "
+                 f"equal {repeat}): {shown}")
+        if not max(errs["card, guard bypassed"].values()) > 1e-4:
+            fail(f"vgg one step with the f32 guard bypassed passes the "
+                 f"1e-4 gate, which so cannot see TF32: {shown}")
+        x1 = dict(data, x=np.nextafter(data["x"], np.float32(np.inf)))
+        ulp3 = exp_cpu.compile(x1, raw_items, rng=0, sample_rng=0,
+                               n_items=n_items).run(3)
+        floor = (ulp3.state.buf - cpu_buf3).abs().max().item()
+        print(f"check vgg one step against f64 on the CPU (max |diff| / "
+              f"max |value|; the card's with TF32 switched as a process "
+              f"starts gated <= 1e-4 and equal over two runs; the bypassed "
+              f"guard must miss): {shown}; 3 rounds card-vs-cpu max|param "
+              f"diff|={diff:.3e} against the CPU's own 3 rounds from its "
+              f"input moved by one ulp {floor:.3e} (reported)", flush=True)
+
+    vgg_note = " (TF32 switches as a process starts)"
+    for model in ("mlp", "vgg"):
+        table = {}
+        for alg in TABLE_ALGS:
+            (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
+             n_items) = table_setup(model, alg)
+            fed = FedConfig(num_nodes=4, local_steps=steps, algorithm=alg)
+            exp = experiment.Experiment.from_parts(tloss, init, fed=fed,
+                                                   train=train_cfg)
+            ev = experiment.EvalCallback(eval_fn(dev))
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            session = exp.compile(data, raw_items, rng=0, sample_rng=0,
+                                  n_items=n_items)
+            flags = (process_tf32() if model == "vgg"
+                     else contextlib.nullcontext())
+            with flags:
+                r3 = session.run(3, callbacks=[ev])
+                buf3 = session.state.buf.clone()
+            r57 = session.run(TABLE_ROUNDS - 3, callbacks=[ev])
+            torch.cuda.synchronize()
+            round_ms = 1e3 * (time.perf_counter() - t0) / TABLE_ROUNDS
+            counts = read_counts()
+            mixes = TABLE_ROUNDS * (steps if alg == "dpsgd" else 1)
+            expect_counts(f"table {model} {alg}", counts, {
+                "flat_mix": mixes, "flat_consensus": 0, "cnd_bitmaps": 1,
+                "cnd_popcount": 1, **dense_only})
+            add(counts)
+            exp_cpu = experiment.Experiment.from_parts(
+                tloss, init, fed=fed, train=train_cfg, device="cpu")
+            cpu3 = exp_cpu.compile(data, raw_items, rng=0, sample_rng=0,
+                                   n_items=n_items).run(
+                3, callbacks=[experiment.EvalCallback(eval_fn("cpu"))])
+            diff = (buf3.cpu() - cpu3.state.buf).abs().max().item()
+            # the VGG's 18 Adam steps amplify f32 rounding to about 1e-2
+            # (ReLU gates decided by rounding flip): the CPU alone moves as
+            # far from a one-ulp change of its input, so its gate is the
+            # one-step check below
+            if model == "mlp" and not diff <= 1e-4:
+                fail(f"table {model} {alg}: card params after 3 rounds "
+                     f"differ from the CPU run by {diff:.3e} > 1e-4")
+            acc = torch.cat([r3.metrics["eval"],
+                             r57.metrics["eval"]]).cpu().numpy()   # (R, K)
+            to_80, reached = rounds_to_80(acc)
+            table[alg] = to_80.tolist()
+            eval_diff = np.abs(acc[:3] - cpu3.metrics["eval"].numpy()).max()
+            curve = [round(float(acc[r - 1].mean()), 4)
+                     for r in (10, 20, 30, 60) if r <= TABLE_ROUNDS]
+            print(f"table {model} {alg} rounds_to_80/node={to_80.tolist()} "
+                  f"(mean {float(np.mean(to_80)):.2f}; reached="
+                  f"{reached.tolist()}; {TABLE_ROUNDS} where never reached) "
+                  f"final_acc/node={[round(float(a), 4) for a in acc[-1]]} "
+                  f"mean acc at rounds 10/20/30/60={curve} "
+                  f"ms/round={round_ms:.3f} n_items="
+                  f"{None if n_items is None else n_items.tolist()} "
+                  f"launches={counts} card-vs-cpu 3 rounds max|param diff|="
+                  f"{diff:.3e} max|eval diff|={eval_diff:.4f}"
+                  f"{vgg_note if model == 'vgg' else ''}",
+                  flush=True)
+            if model == "vgg" and alg == "cdfl":
+                # one more round under the profiler: busy share and the top
+                # device ops of a VGG round
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    session.run(1, callbacks=[ev])
+                    torch.cuda.synchronize()
+                    prof_ms = 1e3 * (time.perf_counter() - t0)
+                busy, n_dev = device_profile(prof)
+                busy_ms = sum(busy.values())
+                if busy_ms <= 0:
+                    fail("profile vgg: the round shows no device time")
+                top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+                conv_ms = sum(v for n, v in busy.items()
+                              if "conv" in n.lower() or "cudnn" in n.lower()
+                              or "implicit" in n.lower())
+                print(f"profile vgg cdfl round: wall_ms={prof_ms:.3f} "
+                      f"device_busy_ms={busy_ms:.3f} busy_share="
+                      f"{busy_ms / prof_ms:.4f} B1_ms={b1_ms(busy):.4f} "
+                      f"conv_ms={conv_ms:.4f} device_events={n_dev} top="
+                      f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+                vgg_checks(exp, exp_cpu, data, raw_items, n_items, tloss,
+                           diff, cpu3.state.buf)
+                with process_tf32():
+                    check_resume("vgg cdfl", exp, data, raw_items, add,
+                                 expect_counts, dense_only, n_items=n_items)
+        ranking = sorted((round(float(np.mean(v)), 2), a)
+                         for a, v in table.items())
+        print(f"table {model} ranking (mean rounds to 80% over the 4 "
+              f"stations, lower is faster; reported, not gated): {ranking}",
+              flush=True)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
@@ -1707,6 +2099,13 @@ def main() -> None:
     print("kernels all eight agree with their plain versions "
           f"(B1/B2/B5/B6/B7 and B8 f32 rtol={RTOL} atol={ATOL}, B8 bf16 "
           f"within one bf16 ulp, B3/B4 bit for bit)", flush=True)
+    # the launch floor: a one-element add_ timed as the kernels are, what
+    # one host-issued launch (ms) and one CUDA-graph node (graph) cost
+    # whatever the kernel does
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_graph_ms = timing(lambda: one.add_(1.0))
+    print(f"launch floor add_ of 1 element ms={floor_ms:.5f} "
+          f"graph_ms={floor_graph_ms:.5f}", flush=True)
 
     # -- 4. the paper path at K=4, on the card and on the CPU -------------
     totals = {name: 0 for name in read_counts()}
@@ -1773,6 +2172,9 @@ def main() -> None:
           f" loss/round={lossr} disagreement={dis} launches={counts} "
           f"card-vs-cpu max|param diff|={diff:.3e} card ms/round="
           f"{cdfl4_ms:.3f}", flush=True)
+
+    quickstart_and_resume(add, expect_counts, dense_only, loss, train,
+                          fed_k4, data4, items4)
 
     # -- 5. fedavg at K=4 -------------------------------------------------
     fed = FedConfig(num_nodes=4, topology="ring", gamma=0.5, local_steps=10,
@@ -2440,95 +2842,7 @@ def main() -> None:
         print(f"check faulted {fmt} K=64 wire=f32 3 rounds card-vs-cpu "
               f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
 
-    # -- 8. the paper's Tables 1-4, MLP (benchmarks/paper_tables.py:24-140)
-    # K=4 ring; NODE_RATIOS through inject_duplicates, synthetic MNIST at
-    # noise 2.5, 320 items a station, a 320-item test set from seed 99;
-    # the MLP config's lr 1e-4, batch 32, betas and eps; 10 local steps;
-    # 60 rounds with per-round test accuracy. cdfl trains on the CND-
-    # deduplicated (ragged) nodes through n_items; its sketches, like
-    # every algorithm's, come from the raw data. The ranking is reported,
-    # not gated. The card is checked against the CPU over the first 3
-    # rounds (the run is two segments, 3 + 57 rounds).
-    from repro_torch.data import pipeline, redundancy
-    cfg = MLP_CONFIG
-    raw = [redundancy.inject_duplicates(
-        synthetic.synthetic_mnist(seed=i, n=cfg.train_per_node,
-                                  noise=TABLE_NOISE), TABLE_RATIOS[i], seed=i)
-        for i in range(4)]
-    test_set = synthetic.synthetic_mnist(seed=99, n=cfg.test_per_node * 4,
-                                         noise=TABLE_NOISE)
-    raw_items = pipeline.FederatedBatcher(raw, cfg.batch_size,
-                                          10).node_items()
-    table_train = TrainConfig(learning_rate=cfg.learning_rate,
-                              batch_size=cfg.batch_size, beta1=cfg.beta1,
-                              beta2=cfg.beta2, eps=cfg.eps)
-
-    def table_eval(device):
-        x = torch.as_tensor(test_set.x, device=device).expand(
-            (4,) + test_set.x.shape)
-        y = torch.as_tensor(test_set.y, device=device).expand(
-            (4,) + test_set.y.shape)
-        return lambda params: simple.accuracy(simple.mlp_forward(params, x),
-                                              y)
-
-    def pad_cycle(a, n):
-        return np.concatenate([a] * int(np.ceil(n / a.shape[0])))[:n]
-
-    table = {}
-    for alg in TABLE_ALGS:
-        nodes = ([redundancy.cnd_dedup(d) for d in raw] if alg == "cdfl"
-                 else raw)
-        n_per = np.asarray([d.x.shape[0] for d in nodes])
-        n_max = int(n_per.max())
-        data = {"x": np.stack([pad_cycle(d.x, n_max) for d in nodes]),
-                "y": np.stack([pad_cycle(d.y, n_max) for d in nodes])}
-        n_items = None if (n_per == n_max).all() else n_per
-        fed = FedConfig(num_nodes=4, local_steps=10, algorithm=alg)
-        tr = cdfl.build_trainer(loss, fed, table_train,
-                                eval_fn=table_eval(dev))
-        gen_idx = torch.Generator().manual_seed(0)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state3, m3 = tr.run_rounds(tr.init(p0, raw_items), data, 3,
-                                   generator=gen_idx, n_items=n_items)
-        state, m57 = tr.run_rounds(state3, data, TABLE_ROUNDS - 3,
-                                   generator=gen_idx, n_items=n_items)
-        torch.cuda.synchronize()
-        round_ms = 1e3 * (time.perf_counter() - t0) / TABLE_ROUNDS
-        counts = read_counts()
-        mixes = TABLE_ROUNDS * (10 if alg == "dpsgd" else 1)
-        expect_counts(f"table {alg}", counts, {
-            "flat_mix": mixes, "flat_consensus": 0, "cnd_bitmaps": 1,
-            "cnd_popcount": 1, **dense_only})
-        add(counts)
-        tr_cpu = cdfl.build_trainer(loss, fed, table_train, device="cpu",
-                                    eval_fn=table_eval("cpu"))
-        cpu3, cpu_m3 = tr_cpu.run_rounds(
-            tr_cpu.init(p0, raw_items), data, 3,
-            generator=torch.Generator().manual_seed(0), n_items=n_items)
-        diff = (state3.buf.cpu() - cpu3.buf).abs().max().item()
-        if not diff <= 1e-4:
-            fail(f"table {alg}: card params after 3 rounds differ from the "
-                 f"CPU run by {diff:.3e} > 1e-4")
-        acc = torch.cat([m3["eval"], m57["eval"]]).cpu().numpy()   # (R, K)
-        hit = acc >= 0.8
-        to_80 = np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
-                         TABLE_ROUNDS)
-        table[alg] = to_80.tolist()
-        eval_diff = np.abs(acc[:3] - cpu_m3["eval"].numpy()).max()
-        curve = [round(float(acc[r - 1].mean()), 4) for r in (10, 20, 30, 60)]
-        print(f"table {alg} rounds_to_80/node={to_80.tolist()} (reached="
-              f"{hit.any(axis=0).tolist()}; {TABLE_ROUNDS} where never "
-              f"reached) final_acc/node="
-              f"{[round(float(a), 4) for a in acc[-1]]} mean acc at rounds "
-              f"10/20/30/60={curve} ms/round={round_ms:.3f} n_items="
-              f"{None if n_items is None else n_items.tolist()} launches="
-              f"{counts} card-vs-cpu 3 rounds max|param diff|={diff:.3e} "
-              f"max|eval diff|={eval_diff:.4f}", flush=True)
-    ranking = sorted((round(float(np.mean(v)), 2), a) for a, v in table.items())
-    print(f"table ranking (mean rounds to 80% over the 4 stations, lower is "
-          f"faster; reported, not gated): {ranking}", flush=True)
+    paper_tables(dev, add, expect_counts, dense_only)
 
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
     rwkv_serving(dev, rows, record, add, expect_counts)

@@ -64,19 +64,16 @@ def decode_state_from_numpy(state, device=None) -> transformer.DecodeState:
                                         dtype=torch.int32, device=dev))
 
 
-def params_from_numpy(tree: dict, device=None):
-    """Node-stacked params ``{name: (K, ...) array}`` -> ``(buf, layout)``,
-    the port's ``(K, P)`` f32 buffer in the JAX package's column order."""
+def params_from_numpy(tree, device=None):
+    """Node-stacked params (a tree of dicts and lists of ``(K, ...)``
+    arrays, e.g. ``{"w1": ..., "b1": ...}`` or the VGG's ``{"stages":
+    [{"conv1", "conv2"}, ...], "fc_w", "fc_b"}``) -> ``(buf, layout)``, the
+    port's ``(K, P)`` f32 buffer in the JAX package's column order."""
     dev = resolve_device(device)
-    if not isinstance(tree, dict) or not tree:
-        raise ValueError("params must be a non-empty dict of arrays")
-    leaves = {}
-    for name, value in tree.items():
-        if isinstance(value, dict):
-            raise ValueError(f"nested params under {name!r}: the port's "
-                             f"flat layout takes one level of keys")
-        leaves[name] = torch.tensor(np.asarray(value), device=dev)
-    return flatten.flatten(leaves)
+    if not isinstance(tree, (dict, list, tuple)) or not tree:
+        raise ValueError("params must be a non-empty tree of arrays")
+    return flatten.flatten(flatten.tree_map(
+        lambda value: torch.tensor(np.asarray(value), device=dev), tree))
 
 
 def state_from_numpy(state, device=None) -> FedState:

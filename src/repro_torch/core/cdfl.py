@@ -21,6 +21,8 @@ summed per-node losses IS the ``(K, P)`` flat gradient (node parameters
 are disjoint). ``init`` sketches every node's data in one launch of
 kernel B3 and reads the bit counts through kernel B4.
 
+``Trainer.round`` runs one round on the static graph from host-fed
+batches (leaves ``(K, S, B, ...)``), as the reference's ``round`` does;
 ``run_rounds`` is a Python loop over rounds. Round r's exchange reads
 slice r of per-round mixing stacks (:func:`mixing_stack`): the static
 graph broadcast, or a mobility scenario's radio-range graphs re-derived
@@ -82,6 +84,8 @@ class FedState(NamedTuple):
 
 class Trainer(NamedTuple):
     init: Callable                # (params, node_items) -> FedState
+    round: Callable               # (state, batches) -> (state, metrics)
+    eta_fn: Callable              # state -> static eta, the config's format
     mixing: Callable              # state -> static (eta, gamma)
     run_rounds: Callable          # (state, data, R[, idx]) -> (state, metrics)
     device: torch.device
@@ -218,15 +222,16 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
     fopt = flat_adam(train.learning_rate, train.beta1, train.beta2,
                      train.eps, train.weight_decay, train.grad_clip)
 
-    def init(params: dict, node_items, same_init: bool = True) -> FedState:
-        """``params``: one node's parameters, broadcast to all K nodes
-        (``same_init``), or node-stacked ``(K, ...)`` leaves.
+    def init(params, node_items, same_init: bool = True) -> FedState:
+        """``params``: one node's parameter tree (dicts and lists of
+        tensors), broadcast to all K nodes (``same_init``), or node-stacked
+        ``(K, ...)`` leaves.
         ``node_items``: (K, n, f) int32 CND feature tokens."""
-        leaves = {name: torch.as_tensor(v, device=dev)
-                  for name, v in params.items()}
+        leaves = flatten.tree_map(lambda v: torch.as_tensor(v, device=dev),
+                                  params)
         if same_init:
-            leaves = {name: v.expand((k,) + tuple(v.shape))
-                      for name, v in leaves.items()}
+            leaves = flatten.tree_map(
+                lambda v: v.expand((k,) + tuple(v.shape)), leaves)
         buf, layout = flatten.flatten(leaves)
         if layout.num_nodes != k:
             raise ValueError(f"params hold {layout.num_nodes} nodes, the "
@@ -247,6 +252,12 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         fstate = buf if has_straggle else ()
         return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate,
                         fstate)
+
+    def eta_fn(state: FedState):
+        """The static graph's weights in the config's format: dense
+        ``(K, K)`` eta (the reference's ``eta_fn``), its top-D
+        ``SparseEta``, or a ``HierEta``."""
+        return mixing(state)[0]
 
     def mixing(state: FedState):
         """The static graph's weights in the config's format, and gamma."""
@@ -423,17 +434,17 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             return flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma)
         return flatten.mix_flat(buf, eta, gamma)
 
-    def local_steps(buf, opt, layout, data, idx_r, eta=None, gamma=None):
-        """``local_steps`` Adam steps of every node; idx_r (K, S, B). For
-        dpsgd (``eta`` given) each step first gossips the buffer, and the
-        loss is the mean over nodes and steps, broadcast to every node."""
-        rows = torch.arange(k, device=dev)[:, None]
+    def local_steps(buf, opt, layout, batch_at, n_steps, eta=None,
+                    gamma=None):
+        """``n_steps`` Adam steps of every node on the batches
+        ``batch_at(s)`` (leaves (K, B, ...)). For dpsgd (``eta`` given)
+        each step first gossips the buffer, and the loss is the mean over
+        nodes and steps, broadcast to every node."""
         loss_sum = torch.zeros(k, dtype=torch.float32, device=dev)
-        for s in range(idx_r.shape[1]):
+        for s in range(n_steps):
             if eta is not None:
                 buf = gossip(buf, eta, gamma)
-            sel = idx_r[:, s]
-            batch = {name: arr[rows, sel] for name, arr in data.items()}
+            batch = batch_at(s)
             p = buf.detach().requires_grad_(True)
             with torch.enable_grad():
                 losses = loss_fn(flatten.unflatten(p, layout), batch)
@@ -441,10 +452,47 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             with torch.no_grad():
                 buf, opt = fopt.update(grad, opt, buf)
             loss_sum += losses.detach()
-        loss = loss_sum / idx_r.shape[1]
+        loss = loss_sum / n_steps
         if eta is not None:
             loss = loss.mean().expand(k)
         return buf, opt, loss
+
+    def gathered(data, idx_r):
+        """``batch_at`` of one round's (K, S, B) indices into the resident
+        datasets."""
+        rows = torch.arange(k, device=dev)[:, None]
+        return lambda s: {name: arr[rows, idx_r[:, s]]
+                          for name, arr in data.items()}
+
+    def round_fn(state: FedState, batches: dict):
+        """One round on the static graph from host-fed ``batches`` (leaves
+        ``(K, S, B, ...)``: node, local step, batch, with S and B the
+        config's): ``run_rounds`` over one round whose indices walk the
+        batches in order. Returns the state and that round's metrics
+        (``loss`` (K,), ``disagreement``, ``gamma``, ...)."""
+        if mob is not None:
+            raise ValueError(
+                "FedConfig.mobility is set but Trainer.round trains on "
+                "the frozen static graph — time-varying topologies ride "
+                "the run_rounds scan")
+        if faulty:
+            raise ValueError(
+                "FedConfig.faults is set but Trainer.round drives one "
+                "round at a time — fault schedules (and the in-scan "
+                "self-healing guard) ride the run_rounds scan")
+        batches = {name: torch.as_tensor(v) for name, v in batches.items()}
+        steps, size = fed.local_steps, train.batch_size
+        for name, v in batches.items():
+            if tuple(v.shape[:3]) != (k, steps, size):
+                raise ValueError(
+                    f"batches[{name!r}] leads with {tuple(v.shape[:3])}, "
+                    f"not (K, local_steps, batch_size) = {(k, steps, size)}")
+        data = {name: v.reshape((k, steps * size) + tuple(v.shape[3:]))
+                for name, v in batches.items()}
+        idx = torch.arange(steps * size).view(1, 1, steps, size).expand(
+            1, k, steps, size)
+        state, metrics = run_rounds(state, data, 1, idx=idx)
+        return state, {name: v[0] for name, v in metrics.items()}
 
     def run_rounds(state: FedState, data: dict, num_rounds: int,
                    idx=None, generator: Optional[torch.Generator] = None,
@@ -566,14 +614,16 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             if dpsgd:
                 # no once-per-round exchange: the gossip runs inside the
                 # step loop (dpsgd takes no faults, so sent is None)
-                buf, opt, loss = local_steps(buf, opt, state.layout, data,
-                                             idx[r], eta_r, gammas[r])
+                buf, opt, loss = local_steps(
+                    buf, opt, state.layout, gathered(data, idx[r]),
+                    fed.local_steps, eta_r, gammas[r])
             else:
                 buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r],
                                       state.layout, tstate, state.round + r,
                                       sent=sent)
-                buf, opt, loss = local_steps(buf, opt, state.layout, data,
-                                             idx[r])
+                buf, opt, loss = local_steps(
+                    buf, opt, state.layout, gathered(data, idx[r]),
+                    fed.local_steps)
             series["loss"].append(loss)
             series["disagreement"].append(
                 flatten.disagreement_flat(buf, state.layout.total))
@@ -608,5 +658,6 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                          state.round + num_rounds, tstate, prev)
         return final, metrics
 
-    return Trainer(init=init, mixing=mixing, run_rounds=run_rounds,
-                   device=dev, mixing_stack=mixing_stack)
+    return Trainer(init=init, round=round_fn, eta_fn=eta_fn, mixing=mixing,
+                   run_rounds=run_rounds, device=dev,
+                   mixing_stack=mixing_stack)

@@ -1,13 +1,14 @@
 """Flat parameter buffer for the consensus exchange (paper eq. 5).
 
-A node-stacked parameter dict (every leaf ``(K, ...)``) is packed into ONE
-contiguous ``(K, P)`` float32 buffer, with P padded once to a multiple of
-LANE = 128, so the whole exchange is one ``(K, K) @ (K, P)`` operation.
-Leaves are ordered by sorted key, the order ``jax.tree.flatten`` gives a
-dict in the JAX package, so the two packages' buffers agree column by
-column. :func:`unflatten` returns VIEWS of the buffer: the trainer's
-forward and backward read the params in place, and the gradient of the
-buffer is the flat gradient, with zeros in the padding.
+A node-stacked parameter tree (nested dicts and lists, every leaf
+``(K, ...)``) is packed into ONE contiguous ``(K, P)`` float32 buffer, with
+P padded once to a multiple of LANE = 128, so the whole exchange is one
+``(K, K) @ (K, P)`` operation. Leaves are ordered as ``jax.tree.flatten``
+orders them in the JAX package (dict keys sorted, lists in order, depth
+first), so the two packages' buffers agree column by column.
+:func:`unflatten` rebuilds the same tree from VIEWS of the buffer: the
+trainer's forward and backward read the params in place, and the gradient
+of the buffer is the flat gradient, with zeros in the padding.
 """
 from __future__ import annotations
 
@@ -21,9 +22,10 @@ LANE = 128                      # pad P once to a multiple of this
 
 
 class FlatLayout(NamedTuple):
-    """Static pack/unpack metadata for one node-stacked parameter dict."""
+    """Static pack/unpack metadata for one node-stacked parameter tree."""
 
-    names: tuple                # leaf keys, sorted
+    names: tuple                # per-leaf key path joined by "/", in order
+    paths: tuple                # per-leaf key path: str keys, int positions
     shapes: tuple               # per-leaf trailing shape (K stripped)
     dtypes: tuple               # per-leaf dtype (restored on unpack)
     offsets: tuple              # per-leaf start offset into the buffer
@@ -33,16 +35,64 @@ class FlatLayout(NamedTuple):
     num_nodes: int              # K
 
 
-def make_layout(params: dict) -> FlatLayout:
-    """Layout of a node-stacked dict of tensors, every leaf ``(K, ...)``."""
-    if not params:
-        raise ValueError("cannot flatten an empty parameter dict")
-    names = tuple(sorted(params))
-    k = params[names[0]].shape[0]
+def leaves_with_paths(tree, prefix: tuple = ()) -> list:
+    """``(path, leaf)`` pairs of a tree of dicts (str keys, visited sorted)
+    and lists or tuples (visited in order), depth first: the order
+    ``jax.tree.flatten`` gives the same tree."""
+    if isinstance(tree, dict):
+        if not all(isinstance(key, str) for key in tree):
+            raise ValueError(f"parameter dict keys must be str, got "
+                             f"{list(tree)}")
+        return [pair for key in sorted(tree)
+                for pair in leaves_with_paths(tree[key], prefix + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, sub in enumerate(tree)
+                for pair in leaves_with_paths(sub, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf, the dicts and lists kept (tuples come
+    back as lists)."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, sub) for key, sub in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, sub) for sub in tree]
+    return fn(tree)
+
+
+def build_tree(paths, leaves):
+    """The tree whose leaves at ``paths`` are ``leaves``: a str key makes a
+    dict level, an int position a list level."""
+    root: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {key: lists(sub) for key, sub in node.items()}
+        if all(isinstance(key, int) for key in out):
+            return [out[i] for i in range(len(out))]
+        return out
+
+    return lists(root)
+
+
+def make_layout(params) -> FlatLayout:
+    """Layout of a node-stacked tree of tensors, every leaf ``(K, ...)``."""
+    pairs = leaves_with_paths(params)
+    if not pairs or not pairs[0][0]:
+        raise ValueError("parameters must be a non-empty tree of dicts and "
+                         "lists of tensors")
+    k = pairs[0][1].shape[0]
     shapes, dtypes, offsets, sizes = [], [], [], []
     off = 0
-    for name in names:
-        leaf = params[name]
+    for path, leaf in pairs:
+        name = "/".join(str(key) for key in path)
         if leaf.dim() < 1 or leaf.shape[0] != k:
             raise ValueError(
                 f"leaf {name!r} {tuple(leaf.shape)} lacks the leading node "
@@ -56,36 +106,37 @@ def make_layout(params: dict) -> FlatLayout:
         sizes.append(size)
         off += size
     padded = -(-off // LANE) * LANE
-    return FlatLayout(names=names, shapes=tuple(shapes), dtypes=tuple(dtypes),
-                      offsets=tuple(offsets), sizes=tuple(sizes), total=off,
-                      padded=padded, num_nodes=k)
+    return FlatLayout(
+        names=tuple("/".join(str(key) for key in path) for path, _ in pairs),
+        paths=tuple(path for path, _ in pairs), shapes=tuple(shapes),
+        dtypes=tuple(dtypes), offsets=tuple(offsets), sizes=tuple(sizes),
+        total=off, padded=padded, num_nodes=k)
 
 
-def flatten(params: dict, layout: FlatLayout | None = None):
-    """Pack a node-stacked dict into a ``(K, P)`` float32 buffer on the
+def flatten(params, layout: FlatLayout | None = None):
+    """Pack a node-stacked tree into a ``(K, P)`` float32 buffer on the
     leaves' device. Returns ``(buf, layout)``; the tail padding is zero."""
     if layout is None:
         layout = make_layout(params)
     k = layout.num_nodes
-    pieces = [params[n].reshape(k, -1).to(torch.float32)
-              for n in layout.names]
+    pieces = [leaf.reshape(k, -1).to(torch.float32)
+              for _, leaf in leaves_with_paths(params)]
     pad = layout.padded - layout.total
     if pad:
         pieces.append(pieces[0].new_zeros((k, pad)))
     return torch.cat(pieces, dim=1).contiguous(), layout
 
 
-def unflatten(buf: torch.Tensor, layout: FlatLayout) -> dict:
-    """Leaf views of the ``(K, P)`` buffer (no copy for f32 leaves; other
-    dtypes are cast back, which copies)."""
+def unflatten(buf: torch.Tensor, layout: FlatLayout):
+    """The layout's tree of leaf views of the ``(K, P)`` buffer (no copy
+    for f32 leaves; other dtypes are cast back, which copies)."""
     k = buf.shape[0]
-    out = {}
-    for name, shape, dtype, off, size in zip(layout.names, layout.shapes,
-                                             layout.dtypes, layout.offsets,
-                                             layout.sizes):
+    leaves = []
+    for shape, dtype, off, size in zip(layout.shapes, layout.dtypes,
+                                       layout.offsets, layout.sizes):
         leaf = buf[:, off:off + size].view((k,) + shape)
-        out[name] = leaf if dtype == buf.dtype else leaf.to(dtype)
-    return out
+        leaves.append(leaf if dtype == buf.dtype else leaf.to(dtype))
+    return build_tree(layout.paths, leaves)
 
 
 def prefix_length(layout: FlatLayout, fraction: float) -> int:

@@ -44,6 +44,29 @@ def inject_duplicates(ds: Dataset, distinct_ratio: float,
     return Dataset(x=ds.x[idx], y=ds.y[idx], features=ds.features[idx])
 
 
+def cross_node_overlap(datasets: list[Dataset], overlap: float,
+                       seed: int = 0) -> list[Dataset]:
+    """Make ``overlap`` fraction of each node's items copies of its ring
+    predecessor's items (adjacent vehicles see the same scene)."""
+    if overlap <= 0:
+        return datasets
+    rng = np.random.default_rng(seed)
+    out = []
+    k = len(datasets)
+    for i, ds in enumerate(datasets):
+        prev = datasets[(i - 1) % k]
+        n = ds.x.shape[0]
+        n_copy = int(round(n * overlap))
+        take = rng.integers(0, prev.x.shape[0], size=n_copy)
+        keep = rng.choice(n, size=n - n_copy, replace=False)
+        x = np.concatenate([ds.x[keep], prev.x[take]])
+        y = np.concatenate([ds.y[keep], prev.y[take]])
+        f = np.concatenate([ds.features[keep], prev.features[take]])
+        perm = rng.permutation(n)
+        out.append(Dataset(x=x[perm], y=y[perm], features=f[perm]))
+    return out
+
+
 def true_distinct_count(features: np.ndarray) -> int:
     """Ground truth |distinct| (for validating the CND estimate)."""
     return np.unique(features, axis=0).shape[0]

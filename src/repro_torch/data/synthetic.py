@@ -54,3 +54,21 @@ def synthetic_mnist(seed: int, n: int, num_classes: int = 10,
     noise_arr = rng.normal(0, noise, size=(n, d)).astype(np.float32)
     x = templates[y] + noise_arr
     return Dataset(x=x, y=y, features=_cnd_features(x))
+
+
+def synthetic_bird(seed: int, n: int, num_classes: int = 5,
+                   image_size: int = 32, channels: int = 3,
+                   noise: float = 0.5,
+                   classes: list | None = None) -> Dataset:
+    """Class-template color images (BIRD-400 stand-in, reduced 32x32)."""
+    rng = np.random.default_rng(seed)
+    shape = (image_size, image_size, channels)
+    trng = np.random.default_rng(4321)
+    templates = trng.normal(0, 1, size=(num_classes,) + shape
+                            ).astype(np.float32)
+    pool = np.asarray(classes if classes is not None
+                      else range(num_classes))
+    y = pool[rng.integers(0, len(pool), size=n)].astype(np.int32)
+    noise_arr = rng.normal(0, noise, size=(n,) + shape).astype(np.float32)
+    x = templates[y] + noise_arr
+    return Dataset(x=x, y=y, features=_cnd_features(x))

@@ -98,6 +98,9 @@ NOT_PORTED = {
     ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
                              "transports)",
     ("ingest", None): "ROADMAP queue A item 19 (ingest)",
+    # Experiment(RunConfig(model=ModelConfig)): the token-LM loss
+    ("model", "token_lm"): "ROADMAP queue A item 23d (the federated LLM "
+                           "training path)",
 }
 
 _MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"

@@ -16,7 +16,7 @@ from repro.configs import registry as jregistry
 from repro.data import pipeline as jpipeline
 from repro.data import redundancy as jredundancy
 from repro.data import synthetic as jsynthetic
-from repro_torch import convert, registry
+from repro_torch import convert, experiment, registry
 from repro_torch.configs import base as tbase
 from repro_torch.configs import paper_models as tmodels
 from repro_torch.configs import registry as tregistry
@@ -52,6 +52,12 @@ def test_port_never_imports_jax_or_the_reference():
                     bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert not bad, bad
     assert len(_port_files()) > 10
+    walked = {str(path.relative_to(ROOT)) for path in _port_files()}
+    assert {"src/repro_torch/experiment.py",
+            "src/repro_torch/checkpointing/checkpoint.py",
+            "src/repro_torch/checkpointing/__init__.py",
+            "src/repro_torch/data/partition.py",
+            "src/repro_torch/examples/quickstart.py"} <= walked
 
 
 def _fields(cls):
@@ -73,6 +79,11 @@ def test_run_config_and_mlp_config_match_reference():
     assert [f.name for f in dataclasses.fields(tbase.RunConfig)] == \
         [f.name for f in dataclasses.fields(jbase.RunConfig)]
     assert _fields(tmodels.MLPConfig) == _fields(jmodels.MLPConfig)
+
+
+def test_vgg_config_matches_reference():
+    assert _fields(tmodels.VGGConfig) == _fields(jmodels.VGGConfig)
+    assert _values(tmodels.VGG_CONFIG) == _values(jmodels.VGG_CONFIG)
 
 
 def _values(cfg):
@@ -167,6 +178,10 @@ def test_entry_points_default_to_the_card():
         cdfl.build_trainer(_loss(), tbase.FedConfig(), tbase.TrainConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simple.mlp_init(torch.Generator(), MLP_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simple.vgg_init(torch.Generator(), tmodels.VGG_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        experiment.Experiment.from_parts(_loss(), lambda g: {})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.params_from_numpy({"w": np.zeros((2, 3), np.float32)})
     cfg = tregistry.get_smoke_arch("qwen3-1.7b")
