@@ -82,9 +82,19 @@ by block from the same input; teacher-forced decode, 16 generated tokens,
 one profiled decode step) and in f32 (128
 prompt tokens through B10 and a ragged 120 through the sequential scan,
 each against teacher-forced decode), and ``serve.main --arch rwkv6-7b``
-at smoke width on the card against the CPU; the loaded libraries by
-digest; the kernel table (ten kernels) as one JSON line; and the verdict
-as the last line. Every path
+at smoke width on the card against the CPU; then federated LLM training:
+qwen3-1.7b at its published widths, cut to two layers, in f32 (723,003,904
+params a node) on a K=2 ring through ``Experiment`` and ``Session`` (init
+drawn on the card, 3 rounds of 2 local steps of 4 x 128 tokens timed
+round by round, one round under the profiler, peak memory, B9 in every
+training forward; one local step's loss and flat gradient with B9 in the
+forward against autograd of B9's plain version), the training CLI
+(``repro_torch.launch.train --quick``: qwen3 with both drivers, rwkv6-7b
+through B10, ``--faults crash,corrupt`` and ``--hierarchy`` with their
+``*_SMOKE ok`` verdicts, the qwen3 run's losses against the CPU's) and
+the twin of ``examples/federated_llm.py`` at qwen3-100m on K=4 for 5
+timed rounds and one under the profiler; the loaded libraries by digest; the kernel table (ten kernels)
+as one JSON line; and the verdict as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
 after. Exits non-zero, with no verdict, when CUDA is absent or any check
 fails.
@@ -159,6 +169,15 @@ B9_TOL = 2e-5                 # f32 B9 against its plain version
 RWKV_ARCH = "rwkv6-7b"
 RWKV_PARAMS = 8_876_199_936   # every leaf: decay LoRA, bonus, norms included
 RWKV_F32_PROMPT, RWKV_RAGGED = 128, 120
+# the federated LLM training path: qwen3-1.7b at its published widths, two
+# layers, f32, on K=2 (a K=2 ring is the single edge {0, 1})
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_PARAMS = 723_003_904    # a node: every leaf, untied head included
+TRAIN_K, TRAIN_LAYERS, TRAIN_ROUNDS = 2, 2, 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 2
+CLI_ROUNDS = 3                # each training CLI run at --quick
+FLLM_ROUNDS = 5               # the federated_llm twin at qwen3-100m, K=4,
+                              # then one profiled round
 B10_TOL = 2e-5                # B10 against its plain version, of max |value|
 # bf16 rwkv6-7b, each block from the same input: B10 against its plain
 # version, of max |output| (two bf16 ulps at the top of a binade)
@@ -1527,6 +1546,271 @@ def paper_tables(dev, add, expect_counts, dense_only) -> None:
               flush=True)
 
 
+def llm_training(dev, add, expect_counts) -> None:
+    """The federated LLM training path: qwen3-1.7b at full width (depth
+    cut to two layers, f32) trained on K=2 through Experiment and Session
+    with B9 in every training forward, and one local step's loss and flat
+    gradient through B9's autograd Function against autograd of B9's plain
+    version; the training CLI at --quick on the card (qwen3 with both
+    drivers, rwkv6-7b with B10, faults, hierarchy; the qwen3 run against
+    the CPU); the federated_llm twin at qwen3-100m on K=4."""
+    from repro_torch import experiment
+    from repro_torch.configs.base import FedConfig, RunConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flatten
+    from repro_torch.data import pipeline, redundancy, synthetic
+    from repro_torch.examples import federated_llm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_cli
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # -- 12a. qwen3-1.7b at full width, K=2, through Experiment -----------
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    run_cfg = RunConfig(
+        model=cfg,
+        fed=FedConfig(num_nodes=TRAIN_K, topology="ring",
+                      local_steps=TRAIN_STEPS),
+        train=TrainConfig(learning_rate=3e-4, batch_size=TRAIN_BATCH))
+    nodes = [redundancy.inject_duplicates(synthetic.token_lm(
+        seed=i, n_seqs=64, seq_len=TRAIN_SEQ, vocab=cfg.vocab_size), 0.5,
+        seed=i) for i in range(TRAIN_K)]
+    seqs = np.stack([d.x for d in nodes])
+    data = {"tokens": seqs[..., :-1], "labels": seqs[..., 1:]}
+    items = pipeline.FederatedBatcher(nodes, TRAIN_BATCH,
+                                      TRAIN_STEPS).node_items()
+    exp = experiment.Experiment(run_cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()   # tensors of earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    # the init drawn on the card: 723M draws a node
+    session = exp.compile(data, items,
+                          rng=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    layout = session.state.layout
+    if layout.total != TRAIN_PARAMS or len(layout.names) != 14:
+        fail(f"train full: {layout.total} params in {len(layout.names)} "
+             f"leaves, expected {TRAIN_PARAMS} in 14")
+    # the rounds one Session.run each (the segments equal one run), so
+    # that the first round's one-time costs show apart from the others
+    round_ms, losses = [], []
+    for _ in range(TRAIN_ROUNDS):
+        t0 = time.perf_counter()
+        losses.append(session.run(1).metrics["loss"][0])
+        torch.cuda.synchronize()
+        round_ms.append(1e3 * (time.perf_counter() - t0))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session.run(1)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    n_b9 = (TRAIN_ROUNDS + 1) * TRAIN_STEPS * TRAIN_K * TRAIN_LAYERS
+    expect = {name: 0 for name in counts}
+    expect.update(flat_mix=TRAIN_ROUNDS + 1, cnd_bitmaps=1, cnd_popcount=1,
+                  flash_attention=n_b9)
+    expect_counts("train full", counts, expect)
+    add(counts)
+    busy, n_dev = device_profile(prof)
+    busy_ms = sum(busy.values())
+    # f32 B9 is f32::flash_kernel in csrc/flash_attention.cu
+    b9_ms = sum(v for n, v in busy.items()
+                if n.split("<")[0].endswith("flash_kernel"))
+    if b9_ms <= 0:
+        fail(f"profiled training round launched B9 but no flash_kernel "
+             f"shows device time: {sorted(busy)[:20]}")
+    loss = torch.stack(losses)
+    mean = loss.mean(dim=1).cpu()
+    if not (bool(torch.isfinite(loss).all()) and mean[-1] < mean[0]):
+        fail(f"train full: loss not finite or not falling: {mean.tolist()}")
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    print(f"path train full {TRAIN_ARCH} d_model={cfg.d_model} "
+          f"layers={cfg.num_layers} f32 params/node={layout.total} "
+          f"K={TRAIN_K} ring cdfl batch={TRAIN_BATCH} seq={TRAIN_SEQ} "
+          f"local_steps={TRAIN_STEPS} compile_s={compile_s:.2f} "
+          f"ms/round={[round(v, 3) for v in round_ms]} loss/round="
+          f"{[round(v, 4) for v in mean.tolist()]} peak_gb="
+          f"{peak / 1e9:.2f} (earlier phases {base / 1e9:.2f}) "
+          f"launches={counts} (B1={counts['flat_mix']} "
+          f"B3={counts['cnd_bitmaps']} B4={counts['cnd_popcount']} "
+          f"B9={counts['flash_attention']})", flush=True)
+    print(f"profile train full round: wall_ms={prof_ms:.3f} device_busy_ms="
+          f"{busy_ms:.3f} busy_share={busy_ms / prof_ms:.4f} B9_ms="
+          f"{b9_ms:.4f} device_events={n_dev} "
+          f"top={[(n, round(v, 4)) for n, v in top]}", flush=True)
+    del prof
+
+    # -- 12b. one local step: B9's Function against B9's plain version ----
+    # the same params and batch (round 0's first step); the loss and the
+    # (K, P) gradient with B9 in the forward and the plain version's
+    # autograd in the backward, against autograd of the plain version in
+    # both. These launches compare a kernel with its plain version: they
+    # are not counted.
+    loss_fn, _ = exp._model_fns(session.data)
+    idx = session.batch_indices(0, 1)[0, :, 0].to(dev)      # (K, B)
+    rows = torch.arange(TRAIN_K, device=dev)[:, None]
+    batch = {name: v[rows, idx] for name, v in session.data.items()}
+
+    def one_step():
+        p = session.state.buf.detach().requires_grad_(True)
+        losses = loss_fn(flatten.unflatten(p, layout), batch)
+        (grad,) = torch.autograd.grad(losses.sum(), p)
+        return losses.detach(), grad
+
+    def plain_attention(q, k, v, *, causal=True, window=None):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+    reset_counts()
+    loss_k, grad_k = one_step()
+    launched = read_counts()["flash_attention"]
+    with unittest.mock.patch.object(ops, "flash_attention", plain_attention):
+        loss_p, grad_p = one_step()
+    if launched != TRAIN_K * TRAIN_LAYERS or \
+            read_counts()["flash_attention"] != launched:
+        fail(f"train step check: B9 launched {launched} times through the "
+             f"Function (expected {TRAIN_K * TRAIN_LAYERS}), "
+             f"{read_counts()['flash_attention'] - launched} on the plain "
+             f"path (expected 0)")
+    loss_rel = ((loss_k - loss_p).abs() / loss_p.abs()).max().item()
+    grad_rel = (grad_k - grad_p).abs().max().item() / \
+        grad_p.abs().max().item()
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        fail(f"train step check: B9-forward loss {loss_rel:.3e} (<= 1e-5 "
+             f"relative), gradient {grad_rel:.3e} of max |grad| (<= 1e-4) "
+             f"from autograd of B9's plain version")
+    print(f"check train step {TRAIN_ARCH} full width K={TRAIN_K}: B9 "
+          f"forward + plain backward against autograd of B9's plain "
+          f"version, loss max rel diff={loss_rel:.3e} (<= 1e-5) flat "
+          f"gradient max|diff|/max|grad|={grad_rel:.3e} (<= 1e-4) "
+          f"losses={[round(v, 5) for v in loss_k.tolist()]}", flush=True)
+    del session, exp, grad_k, grad_p, batch
+    torch.cuda.empty_cache()
+
+    # -- 12c. the training CLI at --quick on the card ---------------------
+    def cli(argv):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            state, losses = train_cli.main(argv)
+        return out.getvalue().splitlines(), state, losses
+
+    quick = ["--quick", "--rounds", str(CLI_ROUNDS)]
+    # a kernel launch a layer, node and local step: 3 x 4 x 4 x 2
+    n_fwd = CLI_ROUNDS * 4 * 4 * 2
+    runs = [("qwen3 scan", [], "flash_attention", None),
+            ("qwen3 loop", ["--driver", "loop"], "flash_attention", None),
+            ("rwkv6-7b scan", ["--arch", "rwkv6-7b"], "rwkv6_scan", None),
+            ("qwen3 faults", ["--faults", "crash,corrupt"],
+             "flash_attention", "FAULT_SMOKE"),
+            ("qwen3 hierarchy", ["--hierarchy"], "flash_attention",
+             "HIER_SMOKE")]
+    scan_losses = None
+    for label, flags, kernel, verdict in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        lines, state, losses = cli(quick + flags)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        expect = {"cnd_bitmaps": 1, "cnd_popcount": 1, kernel: n_fwd,
+                  ({"flash_attention", "rwkv6_scan"} - {kernel}).pop(): 0}
+        if verdict is None:
+            expect["flat_mix"] = CLI_ROUNDS
+        expect_counts(f"train cli {label}", counts, expect)
+        mixes = sum(counts[n] for n in ("flat_mix", "flat_consensus",
+                                        "sparse_mix", "cluster_mix"))
+        if mixes < CLI_ROUNDS:
+            fail(f"train cli {label}: {mixes} exchange launches for "
+                 f"{CLI_ROUNDS} rounds")
+        add(counts)
+        if not (np.isfinite(losses).all()
+                and losses[-1].mean() < losses[0].mean()):
+            fail(f"train cli {label}: loss not finite or not falling: "
+                 f"{losses.mean(axis=1).tolist()}")
+        said = ""
+        if verdict is not None:
+            found = [ln for ln in lines if ln.startswith(verdict)]
+            if len(found) != 1 or not found[0].startswith(f"{verdict} ok "):
+                fail(f"train cli {label}: no '{verdict} ok' line: {found}")
+            said = " " + found[0]
+        if label == "qwen3 scan":
+            scan_losses = losses
+        print(f"path train cli {label}: {lines[0]} loss/round="
+              f"{[round(v, 4) for v in losses.mean(axis=1).tolist()]} "
+              f"wall_s={wall_s:.2f} launches={counts}{said}", flush=True)
+    _, _, cpu_losses = cli(quick + ["--device", "cpu"])
+    diff = float(np.abs(scan_losses - cpu_losses).max())
+    if not diff <= 1e-4:
+        fail(f"train cli qwen3 scan: card losses differ from the CPU run's "
+             f"by {diff:.3e} > 1e-4")
+    print(f"check train cli qwen3 scan {CLI_ROUNDS} rounds card-vs-cpu "
+          f"max|loss diff|={diff:.3e} (<= 1e-4)", flush=True)
+
+    # -- 12d. the federated_llm twin at qwen3-100m, K=4 -------------------
+    # FLLM_ROUNDS timed rounds, then one more under the profiler: the
+    # example's trainer is wrapped so that its last round is profiled
+    from repro_torch.core import baselines
+    real_cdfl, seen = baselines.cdfl, {}
+
+    def profiling_cdfl(*args, **kw):
+        tr = real_cdfl(*args, **kw)
+
+        def round_fn(state, batch):
+            seen["rounds"] = seen.get("rounds", 0) + 1
+            if seen["rounds"] <= FLLM_ROUNDS:
+                return tr.round(state, batch)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = tr.round(state, batch)
+                torch.cuda.synchronize()
+                seen["ms"] = 1e3 * (time.perf_counter() - t0)
+            seen["busy"] = device_profile(prof)
+            return out
+        return tr._replace(round=round_fn)
+
+    ckpt = ROOT / "build" / "chip_smoke_federated_llm"
+    reset_counts()
+    with unittest.mock.patch.object(baselines, "cdfl", profiling_cdfl), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        state, means, seconds = federated_llm.main(
+            ["--rounds", str(FLLM_ROUNDS + 1), "--checkpoint", str(ckpt)])
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counts = read_counts()
+    layers = federated_llm.model_100m().num_layers
+    expect = {name: 0 for name in counts}
+    expect.update(flat_mix=FLLM_ROUNDS + 1, cnd_bitmaps=1, cnd_popcount=1,
+                  flash_attention=(FLLM_ROUNDS + 1) * 2 * 4 * layers)
+    expect_counts("federated_llm", counts, expect)
+    add(counts)
+    if not (np.isfinite(means).all() and means[-1] < means[0]):
+        fail(f"federated_llm: loss not finite or not falling: "
+             f"{means.tolist()}")
+    busy, n_dev = seen["busy"]
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    print(f"path federated_llm {out.getvalue().splitlines()[0]} "
+          f"rounds={FLLM_ROUNDS} ms/round="
+          f"{[round(1e3 * v, 3) for v in seconds[:FLLM_ROUNDS].tolist()]} "
+          f"loss/round={[round(v, 4) for v in means.tolist()]} "
+          f"launches={counts}", flush=True)
+    print(f"profile federated_llm round {FLLM_ROUNDS}: wall_ms="
+          f"{seen['ms']:.3f} device_busy_ms={busy_ms:.3f} busy_share="
+          f"{busy_ms / seen['ms']:.4f} device_events={n_dev} "
+          f"top={[(n, round(v, 4)) for n, v in top]}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    print(f"phase llm training {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
@@ -2846,6 +3130,7 @@ def main() -> None:
 
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
     rwkv_serving(dev, rows, record, add, expect_counts)
+    llm_training(dev, add, expect_counts)
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",

@@ -434,12 +434,16 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             return flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma)
         return flatten.mix_flat(buf, eta, gamma)
 
-    def local_steps(buf, opt, layout, batch_at, n_steps, eta=None,
+    def local_steps(carry, layout, batch_at, n_steps, eta=None,
                     gamma=None):
         """``n_steps`` Adam steps of every node on the batches
-        ``batch_at(s)`` (leaves (K, B, ...)). For dpsgd (``eta`` given)
-        each step first gossips the buffer, and the loss is the mean over
-        nodes and steps, broadcast to every node."""
+        ``batch_at(s)`` (leaves (K, B, ...)), from ``carry = [buf, opt]``,
+        which is emptied: the caller keeps no reference, so each step's
+        new buffers replace the last ones in memory. For dpsgd (``eta``
+        given) each step first gossips the buffer, and the loss is the
+        mean over nodes and steps, broadcast to every node."""
+        buf, opt = carry
+        carry.clear()
         loss_sum = torch.zeros(k, dtype=torch.float32, device=dev)
         for s in range(n_steps):
             if eta is not None:
@@ -610,19 +614,27 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 # receive-side self-healing before anything mixes
                 sent, eta_r, quarantined = faults_lib.wire_guard(
                     sent, buf, eta_r, fed.faults.guard_threshold)
-            entry_buf, entry_opt = buf, opt
+            # the round-entry params and Adam state that a faulted round
+            # rolls back to; a fault-free round keeps no reference, so the
+            # previous round's buffers are freed as this one replaces them
+            # (three (K, P) buffers: 17 GB at qwen3-1.7b's width on K=2)
+            entry_buf, entry_opt = (buf, opt) if faulty else (None, None)
             if dpsgd:
                 # no once-per-round exchange: the gossip runs inside the
                 # step loop (dpsgd takes no faults, so sent is None)
+                carry = [buf, opt]
+                del buf, opt
                 buf, opt, loss = local_steps(
-                    buf, opt, state.layout, gathered(data, idx[r]),
+                    carry, state.layout, gathered(data, idx[r]),
                     fed.local_steps, eta_r, gammas[r])
             else:
                 buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r],
                                       state.layout, tstate, state.round + r,
                                       sent=sent)
+                carry = [buf, opt]
+                del buf, opt
                 buf, opt, loss = local_steps(
-                    buf, opt, state.layout, gathered(data, idx[r]),
+                    carry, state.layout, gathered(data, idx[r]),
                     fed.local_steps)
             series["loss"].append(loss)
             series["disagreement"].append(

@@ -53,3 +53,16 @@ class FederatedBatcher:
     def rounds(self, n: int) -> Iterator[dict]:
         for _ in range(n):
             yield self.next_round()
+
+
+def lm_batches(node_datasets: list[Dataset], batch_size: int,
+               local_steps: int, seed: int = 0) -> dict:
+    """Token-LM variant: {"tokens": (K,S,B,T), "labels": (K,S,B,T)}."""
+    rng = np.random.default_rng(seed)
+    toks, labs = [], []
+    for d in node_datasets:
+        idx = rng.integers(0, d.x.shape[0], size=(local_steps, batch_size))
+        seqs = d.x[idx]                        # (S, B, T+1)
+        toks.append(seqs[..., :-1])
+        labs.append(seqs[..., 1:])
+    return {"tokens": np.stack(toks), "labels": np.stack(labs)}

@@ -72,3 +72,18 @@ def synthetic_bird(seed: int, n: int, num_classes: int = 5,
     noise_arr = rng.normal(0, noise, size=(n,) + shape).astype(np.float32)
     x = templates[y] + noise_arr
     return Dataset(x=x, y=y, features=_cnd_features(x))
+
+
+def token_lm(seed: int, n_seqs: int, seq_len: int,
+             vocab: int = 512) -> Dataset:
+    """Zipf-ish synthetic token sequences for LM federated training."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = (1.0 / ranks) / (1.0 / ranks).sum()
+    x = rng.choice(vocab, size=(n_seqs, seq_len + 1), p=probs
+                   ).astype(np.int32)
+    y = np.zeros(n_seqs, np.int32)
+    # CND features: leading token 4-grams, hashed
+    feats = (x[:, :16] * np.int32(31) + np.roll(x[:, :16], 1, axis=1)
+             ).astype(np.int32)
+    return Dataset(x=x, y=y, features=feats)

@@ -20,9 +20,16 @@ Every plugin name in the configs resolves through
 ``loss_fn(params, batch) -> (K,)`` and ``eval_fn(params) -> (K,)`` take
 node-stacked parameter views and batches whose leaves are ``(K, B, ...)``
 (see :func:`repro_torch.core.cdfl.build_trainer`); ``init_params`` takes a
-``torch.Generator`` on the CPU, and ``rng`` / ``sample_rng`` are a
+``torch.Generator``, and ``rng`` / ``sample_rng`` are a
 ``torch.Generator`` or an int seed. Everything runs on the card unless the
 experiment is given ``device="cpu"``.
+
+``Experiment(RunConfig(model=ModelConfig))`` derives the token-LM pair
+from the config, as the JAX package does: the next-token loss of
+:func:`repro_torch.models.transformer.loss_fn` over batches ``{"tokens",
+"labels"}`` of ``(K, B, T)``, and :func:`transformer.init_params` drawn
+from the generator on its own device (a generator on the card draws a
+full-width model there).
 
 * **Segmentation invariance.** ``Session.run`` draws the ``(R, K, S, B)``
   batch indices itself, round r's from a generator keyed on (sample seed,
@@ -260,13 +267,12 @@ class Experiment:
     :meth:`from_parts` wires explicit ``loss_fn(params, batch) -> (K,)`` /
     ``init_params(generator) -> params`` functions (the paper's MLP/VGG
     models, custom research models). ``Experiment(run_config)`` derives
-    the token-LM loss from ``run_config.model`` in the JAX package; the
-    port refuses that path until it trains the transformer (see
-    :data:`repro_torch.registry.NOT_PORTED`).
+    the token-LM loss and init from ``run_config.model``.
 
-    The trainer is built lazily, once per distinct eval function, and
-    shared by every :class:`Session` this experiment compiles. The cache
-    holds at most 8 trainers.
+    The trainer is built lazily, once per distinct eval function (and,
+    for a model-derived loss, sequence length), and shared by every
+    :class:`Session` this experiment compiles. The cache holds at most 8
+    trainers.
     """
 
     def __init__(self, config: Optional[RunConfig] = None, *,
@@ -283,11 +289,6 @@ class Experiment:
         elif fed is not None or train is not None or model is not None:
             raise ValueError("pass EITHER a RunConfig or fed/train/model "
                              "parts, not both")
-        if loss_fn is None and hasattr(config.model, "vocab_size"):
-            raise NotImplementedError(
-                f"Experiment over RunConfig.model={config.model.name!r} "
-                f"(the token-LM loss) is not ported to repro_torch yet: "
-                f"{registry.NOT_PORTED[('model', 'token_lm')]}")
         self.config = config
         self.loss_fn = loss_fn
         self.init_params = init_params
@@ -321,30 +322,46 @@ class Experiment:
 
     # -- model derivation ---------------------------------------------------
     def _model_fns(self, data) -> tuple[Callable, Callable]:
-        """(loss_fn, init_params), the explicit ones."""
-        if self.loss_fn is None:
+        """(loss_fn, init_params): the explicit ones, or the token-LM pair
+        derived from ``config.model`` (the loss one node at a time,
+        :func:`repro_torch.models.transformer.node_losses`)."""
+        if self.loss_fn is not None:
+            if self.init_params is None:
+                raise ValueError("loss_fn given without init_params")
+            return self.loss_fn, self.init_params
+        cfg = self.config.model
+        if cfg is None or not hasattr(cfg, "vocab_size"):
             raise ValueError(
                 "Experiment needs either loss_fn/init_params "
                 "(Experiment.from_parts) or a ModelConfig on "
                 "RunConfig.model to derive the token-LM loss from")
-        if self.init_params is None:
-            raise ValueError("loss_fn given without init_params")
-        return self.loss_fn, self.init_params
+        from repro_torch.models import transformer
+
+        def loss_fn(params, batch):
+            return transformer.node_losses(params, cfg, batch)
+
+        def init_params(gen):
+            return transformer.init_params(cfg, gen, self.device)
+
+        return loss_fn, init_params
 
     def trainer(self, data, eval_fn: Optional[Callable] = None) -> Trainer:
         """The trainer for this experiment, cached per eval function (the
-        one thing that changes the per-round metrics). The cache is
-        bounded: a sweep passing a fresh eval lambda per run rebuilds the
-        trainer but cannot grow memory without limit."""
+        one thing that changes the per-round metrics) and, for a
+        model-derived loss, per sequence length, as the JAX package keys
+        it. The cache is bounded: a sweep passing a fresh eval lambda per
+        run rebuilds the trainer but cannot grow memory without limit."""
         eval_fn = eval_fn if eval_fn is not None else self.eval_fn
-        if eval_fn not in self._trainers:
+        key = (eval_fn, None if self.loss_fn is not None
+               else next(iter(data.values())).shape[-1])
+        if key not in self._trainers:
             if len(self._trainers) >= 8:          # evict the oldest
                 self._trainers.pop(next(iter(self._trainers)))
             loss_fn, _ = self._model_fns(data)
-            self._trainers[eval_fn] = build_trainer(
+            self._trainers[key] = build_trainer(
                 loss_fn, self.fed, self.train, eval_fn=eval_fn,
                 device=self.device)
-        return self._trainers[eval_fn]
+        return self._trainers[key]
 
     # -- compile ------------------------------------------------------------
     def compile(self, data, node_items, *, rng=None, sample_rng=None,
@@ -356,9 +373,11 @@ class Experiment:
                     keyed as ``loss_fn`` expects a batch.
         node_items: (K, n, f) int feature tokens per node — the CND
                     sketches (eqs. 6-7 weights) are built from these.
-        rng:        the init generator, or its seed (default
-                    ``train.seed``). With ``same_init=False`` each node's
-                    params are the next draw from it.
+        rng:        the init generator (on the CPU, or on the card for a
+                    model-derived init), or its seed (default
+                    ``train.seed``, a CPU generator). With
+                    ``same_init=False`` each node's params are the next
+                    draw from it.
         sample_rng: the seed of batch sampling across ALL rounds, or a
                     generator whose initial seed it is (default
                     ``train.seed + 1``); round r's indices come from a

@@ -4,6 +4,14 @@ A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`. Any other device raises. Higher layers
 call these, never the kernel wrappers directly.
+
+B9 and B10 have no backward kernel, as the TPU kernels have none: the JAX
+package trains its models by differentiating their plain arithmetic. When
+grad is enabled and an input requires grad, :func:`flash_attention` and
+:func:`rwkv6_scan` go through a ``torch.autograd.Function`` whose forward
+dispatches as above on detached inputs (so a training forward on the card
+launches the kernel) and whose backward recomputes the plain version and
+differentiates it.
 """
 from __future__ import annotations
 
@@ -139,17 +147,98 @@ def tma_aligned(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _plain_grads(plain, inputs, outputs_grad, needs):
+    """The gradients of ``plain(*inputs)`` for the inputs marked in
+    ``needs``, by autograd of the plain version (None elsewhere)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(inputs, needs)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(outs, wrt, outputs_grad,
+                                         allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _flash_attention(q, k, v, causal, window):
+    """The dispatch of B9 (no graph is recorded here: the kernel gets
+    detached inputs)."""
+    if _on_cuda(q):
+        return _fa.flash_attention(*(tma_aligned(t.detach())
+                                     for t in (q, k, v)),
+                                   causal=causal, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B9 forward (its plain version on the CPU), backward by autograd of
+    the plain version recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = (causal, window)
+        return _flash_attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        causal, window = ctx.masks
+        grads = _plain_grads(
+            lambda q, k, v: ref.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+            ctx.saved_tensors, (grad,), ctx.needs_input_grad[:3])
+        return grads + (None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window=None) -> torch.Tensor:
     """Online-softmax GQA attention (B9): q (B, Sq, H, D), k/v (B, Sk, KV,
     D) -> (B, Sq, H, D) in q's dtype, q at position 0, scale ``D**-0.5``,
     causal and sliding-window masks. Any view is taken: B9 gets aligned
-    copies of bf16 views that are not 16-byte aligned."""
-    if _on_cuda(q):
-        return _fa.flash_attention(tma_aligned(q), tma_aligned(k),
-                                   tma_aligned(v), causal=causal,
-                                   window=window)
-    return ref.flash_attention(q, k, v, causal=causal, window=window)
+    copies of bf16 views that are not 16-byte aligned. Differentiable:
+    the gradient is that of the plain version (see the module's note)."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal, window)
+
+
+def _rwkv6_scan(r, k, v, w, u, chunk, s0):
+    """The dispatch of B10 (no graph is recorded here: the kernel gets
+    detached inputs)."""
+    if _on_cuda(r):
+        f32 = [None if t is None else t.detach().float().contiguous()
+               for t in (w, u, s0)]
+        return _rw.rwkv6_scan(*(t.detach().contiguous() for t in (r, k, v)),
+                              *f32, chunk=chunk)
+    return ref.rwkv6_scan(r, k, v, w, u, s0=s0, chunk=chunk)
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    """B10 forward (its plain version on the CPU), backward by autograd of
+    the plain wkv recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, chunk, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.chunk = chunk
+        return _rwkv6_scan(r, k, v, w, u, chunk, s0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_s):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        grads = _plain_grads(
+            lambda r, k, v, w, u, s0: ref.rwkv6_scan(
+                r, k, v, w, u, s0=s0, chunk=ctx.chunk),
+            (r, k, v, w, u, s0), (grad_y, grad_s),
+            needs[:5] + needs[6:])
+        return grads[:5] + (None, grads[5])
 
 
 def rwkv6_scan(r, k, v, w, u, chunk: int = 32, s0=None):
@@ -157,10 +246,8 @@ def rwkv6_scan(r, k, v, w, u, chunk: int = 32, s0=None):
     (B, H, D, D) or None (zeros) -> (y (B, S, H, D) f32, final state
     (B, H, D, D) f32). w, u and s0 are taken in f32, r/k/v in their own
     dtype; S a multiple of ``chunk``. The reference's order and default
-    chunk, then the port's initial state."""
-    if _on_cuda(r):
-        f32 = [None if t is None else t.float().contiguous()
-               for t in (w, u, s0)]
-        return _rw.rwkv6_scan(r.contiguous(), k.contiguous(), v.contiguous(),
-                              *f32, chunk=chunk)
-    return ref.rwkv6_scan(r, k, v, w, u, s0=s0, chunk=chunk)
+    chunk, then the port's initial state. Differentiable: the gradient is
+    that of the plain version (see the module's note)."""
+    if _needs_grad(r, k, v, w, u, s0):
+        return _Rwkv6Scan.apply(r, k, v, w, u, chunk, s0)
+    return _rwkv6_scan(r, k, v, w, u, chunk, s0)

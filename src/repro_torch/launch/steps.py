@@ -19,9 +19,10 @@ def make_prefill_step(cfg: ModelConfig, window_override=None):
     logits of the last position only."""
 
     def prefill_step(params, batch):
-        logits, _ = transformer.forward(
-            params, cfg, batch, window_override=window_override,
-            last_only=True)
+        with torch.no_grad():
+            logits, _ = transformer.forward(
+                params, cfg, batch, window_override=window_override,
+                last_only=True)
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     return prefill_step
 
@@ -33,8 +34,9 @@ def make_serve_step(cfg: ModelConfig, window_override=None):
     new_state)``."""
 
     def serve_step(params, decode_state, tokens):
-        logits, new_state = transformer.decode_step(
-            params, cfg, decode_state, tokens,
-            window_override=window_override)
+        with torch.no_grad():
+            logits, new_state = transformer.decode_step(
+                params, cfg, decode_state, tokens,
+                window_override=window_override)
         return torch.argmax(logits, dim=-1).to(torch.int32), new_state
     return serve_step

@@ -12,6 +12,7 @@ API:
   init_params(cfg, generator, device, dtype) -> params dict
   forward(params, cfg, batch, ...)            -> (logits, aux_loss)
   loss_fn(params, cfg, batch)                 -> scalar
+  node_losses(params, cfg, batch)             -> (K,) over node-stacked params
   init_decode(cfg, batch, max_len, ...)       -> DecodeState
   decode_step(params, cfg, state, tokens)     -> (logits, DecodeState)
 """
@@ -133,13 +134,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # Forward (train / prefill)
 # --------------------------------------------------------------------------
 
-@torch.no_grad()
 def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
             last_only: bool = False):
     """batch: {"tokens": (B, S) int}. Returns (logits (B, S_out, V) f32,
     aux scalar). last_only: unembed only the final position (prefill
-    serving — avoids the (B,S,V) logits). Inference only: the attention
-    and wkv kernels have no backward."""
+    serving — avoids the (B,S,V) logits). Differentiable: on the card the
+    attention and wkv kernels run the forward and the backward
+    differentiates their plain versions
+    (:func:`repro_torch.kernels.ops.flash_attention`,
+    :func:`repro_torch.kernels.ops.rwkv6_scan`)."""
     check_model_ported(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(_dtype(cfg))
@@ -156,8 +159,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
-    """Next-token cross entropy (labels provided by the data pipeline),
-    as a forward only: logsumexp minus the label's logit, masked mean."""
+    """Next-token cross entropy (labels provided by the data pipeline), the
+    training loss: logsumexp minus the label's logit, masked mean."""
     logits, aux = forward(params, cfg, batch, **kw)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -170,6 +173,19 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
     else:
         loss = nll.mean()
     return loss + cfg.router_aux_coef * aux
+
+
+def node_losses(params, cfg: ModelConfig, batch: dict):
+    """:func:`loss_fn` of each of K nodes, stacked: ``params`` leaves
+    ``(K, ...)`` (node-stacked views of the flat buffer), ``batch`` leaves
+    ``(K, B, T)`` -> ``(K,)``. A loop over the nodes takes the place of the
+    JAX package's ``vmap``: the kernels are launched through ctypes, which
+    ``torch.func.vmap`` cannot batch."""
+    k = next(iter(batch.values())).shape[0]
+    return torch.stack([
+        loss_fn(_layer(params, i), cfg,
+                {name: v[i] for name, v in batch.items()})
+        for i in range(k)])
 
 
 # --------------------------------------------------------------------------

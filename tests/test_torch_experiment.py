@@ -24,6 +24,7 @@ from repro.data import pipeline, redundancy, synthetic
 from repro.models import simple
 from repro_torch import convert
 from repro_torch import experiment as texp
+from repro_torch import registry
 from repro_torch.configs import base as tbase
 from repro_torch.configs.paper_models import MLP_CONFIG as T_MLP_CONFIG
 from repro_torch.configs.registry import get_smoke_arch
@@ -281,8 +282,11 @@ def test_trainer_cache_is_shared_and_bounded(paper_data):
     for fn in evals:
         exp.trainer(data, eval_fn=fn)
     assert len(exp._trainers) == 8
-    assert None not in exp._trainers and evals[0] not in exp._trainers
-    assert evals[-1] in exp._trainers
+    # keyed as the reference keys it: (eval_fn, sequence length), the
+    # length None for an explicit loss
+    assert (None, None) not in exp._trainers
+    assert (evals[0], None) not in exp._trainers
+    assert (evals[-1], None) in exp._trainers
 
 
 def test_run_rejects_nonpositive_rounds_and_double_eval(paper_data):
@@ -306,14 +310,20 @@ def test_unported_transports_are_refused(paper_data, transport):
 
 
 def test_token_lm_config_and_model_free_config_are_refused():
-    cfg = tbase.RunConfig(model=get_smoke_arch("qwen3-1.7b"),
+    # the token-LM loss is derived from the config; a config of a family
+    # the port's transformer does not build is refused at compile
+    cfg = tbase.RunConfig(model=get_smoke_arch("mixtral-8x7b"),
                           fed=tbase.FedConfig(num_nodes=4, local_steps=1),
                           train=tbase.TrainConfig(batch_size=4))
-    with pytest.raises(NotImplementedError, match="item 23d"):
-        texp.Experiment(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23d"):
-        texp.run_experiment(cfg, {}, np.zeros((4, 2, 2), np.int32), 1,
+    data = {"tokens": np.zeros((4, 2, 8), np.int32),
+            "labels": np.zeros((4, 2, 8), np.int32)}
+    with pytest.raises(NotImplementedError, match="item 23c"):
+        texp.Experiment(cfg, device="cpu").compile(
+            data, np.zeros((4, 2, 2), np.int32))
+    with pytest.raises(NotImplementedError, match="item 23c"):
+        texp.run_experiment(cfg, data, np.zeros((4, 2, 2), np.int32), 1,
                             device="cpu")
+    assert ("model", "token_lm") not in registry.NOT_PORTED
     exp = texp.Experiment(tbase.RunConfig(model=None), device="cpu")
     with pytest.raises(ValueError, match="loss_fn/init_params"):
         exp.compile({"x": np.zeros((4, 2, 3))}, np.zeros((4, 2, 2)))

@@ -57,7 +57,11 @@ def test_port_never_imports_jax_or_the_reference():
             "src/repro_torch/checkpointing/checkpoint.py",
             "src/repro_torch/checkpointing/__init__.py",
             "src/repro_torch/data/partition.py",
-            "src/repro_torch/examples/quickstart.py"} <= walked
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/federated_llm.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/data/synthetic.py",
+            "src/repro_torch/data/pipeline.py"} <= walked
 
 
 def _fields(cls):

@@ -1,9 +1,11 @@
 """Public functions of the port keep the reference's signatures: an AST
 comparison (no JAX import) of every top-level function and class method of
 ``src/repro/kernels/ops.py``, ``src/repro/core/cdfl.py``,
-``src/repro/experiment.py`` and ``src/repro/checkpointing/checkpoint.py``
-with its twin in ``src/repro_torch`` (the batched-sweep and ingest classes
-of ``experiment.py`` wait for ROADMAP queue A items 21 and 19). The
+``src/repro/experiment.py``, ``src/repro/checkpointing/checkpoint.py``,
+``src/repro/launch/train.py``, ``src/repro/data/pipeline.py`` and
+``src/repro/data/synthetic.py`` with its twin in ``src/repro_torch`` (the
+batched-sweep and ingest classes of ``experiment.py`` and the CLI's
+``_run_sweep`` wait for ROADMAP queue A items 21 and 19). The
 leading positional parameters and their defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
 ``interpret``, ``transport``, ``flat_local``); the reference's
@@ -24,10 +26,13 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
          ("repro/core/cdfl.py", "repro_torch/core/cdfl.py"),
          ("repro/experiment.py", "repro_torch/experiment.py"),
          ("repro/checkpointing/checkpoint.py",
-          "repro_torch/checkpointing/checkpoint.py")]
+          "repro_torch/checkpointing/checkpoint.py"),
+         ("repro/launch/train.py", "repro_torch/launch/train.py"),
+         ("repro/data/pipeline.py", "repro_torch/data/pipeline.py"),
+         ("repro/data/synthetic.py", "repro_torch/data/synthetic.py")]
 # whole functions that are dispatch switches of the reference, and the
 # classes and methods of the batched sweeps and ingest not ported yet
-DROPPED_FUNCTIONS = {"use_pallas", "_interpret"}
+DROPPED_FUNCTIONS = {"use_pallas", "_interpret", "_run_sweep"}
 DROPPED_CLASSES = {"SweepAxes", "BatchResult", "BatchedSession",
                    "IngestCallback"}
 DROPPED_METHODS = {"Experiment.compile_batch"}
@@ -75,8 +80,11 @@ def test_every_reference_function_is_compared():
     assert {"rwkv6_scan", "flash_attention", "robust_agg",
             "build_trainer", "Experiment.compile", "Session.run",
             "Session.resume", "EvalCallback.__init__", "save", "restore",
-            "latest_step", "run_experiment"} <= names
-    assert len(CASES) == 49
+            "latest_step", "run_experiment", "Experiment.__init__",
+            "Experiment._model_fns", "Experiment.trainer", "main",
+            "_parse_sweep", "_print_round", "lm_batches", "token_lm",
+            "FederatedBatcher.node_items"} <= names
+    assert len(CASES) == 62
 
 
 @pytest.mark.parametrize("ref_rel,port_rel,name", CASES,
