@@ -59,9 +59,9 @@ as a control that must miss; the VGG's run(10) + save + resume + run(10)
 against run(20) bit for bit); then LLM serving: the count
 of tensor-core (HGMMA) instructions in B9's library, B9 held against its
 plain version (tests/test_kernels.py's sweep, windows, cross attention,
-ragged lengths and rows with no live key, each in f32 and bf16; the bf16
-kernel's tile edges at every head dim; bf16 views off a 16-byte boundary
-through ``ops.flash_attention``; and the path's shapes up to
+ragged lengths and rows with no live key, each in f32 and bf16; both
+kernels' tile edges at every head dim; f32 and bf16 views off a 16-byte
+boundary through ``ops.flash_attention``; and the path's shapes up to
 qwen3's prefill of B=4 S=2048, f32 at the f32 serving path's B=4
 S=128 with and without its 64-token window timed against SDPA in f32), qwen3-1.7b at full width in bf16 (4
 requests of 512 prompt tokens through the prefill step, the same prompts
@@ -283,13 +283,26 @@ def counted():
             "rwkv6_scan": rwkv6_scan.rwkv6_scan}
 
 
+# B9's launches split by dtype (the wrapper counts them apart; its
+# ``launches`` is their sum)
+B9_SPLIT = ("f32", "bf16")
+
+
 def reset_counts() -> None:
     for fn in counted().values():
         fn.launches = 0
+    fa = counted()["flash_attention"]
+    for dt in B9_SPLIT:
+        setattr(fa, f"launches_{dt}", 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counted().items()}
+    """Launches by kernel name, and B9's by dtype under
+    ``flash_attention_<dtype>``."""
+    fa = counted()["flash_attention"]
+    return {**{name: fn.launches for name, fn in counted().items()},
+            **{f"flash_attention_{dt}": getattr(fa, f"launches_{dt}")
+               for dt in B9_SPLIT}}
 
 
 # B1's CUDA kernels (csrc/consensus_mix.cu): the small-K kernel and the
@@ -458,11 +471,15 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
         v = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
         if off:
             q, k, v = view(q), view(k), view(v)
-            before = fa.flash_attention.launches
+            split = f"launches_{str(dtype)[6:].replace('float', 'f')}"
+            before = (fa.flash_attention.launches,
+                      getattr(fa.flash_attention, split))
             out = ops.flash_attention(q, k, v, causal=causal, window=window)
-            if fa.flash_attention.launches != before + 1:
-                fail("ops.flash_attention on unaligned views did not launch "
-                     "B9")
+            if (fa.flash_attention.launches,
+                    getattr(fa.flash_attention, split)) != (before[0] + 1,
+                                                            before[1] + 1):
+                fail(f"ops.flash_attention on unaligned {dtype} views did "
+                     f"not launch B9")
         else:
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention(q.float(), k.float(), v.float(),
@@ -522,16 +539,35 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
         check_b9(1, 128, 64, 2, 1, 32, dtype, window=16)
     # the tile edges of the bf16 kernel (128 query rows, 64-key tiles):
     # one key short of a tile, one past, one past two; GQA 4:1 at every
-    # head dim; Sq not a multiple of 128, causal and not
+    # head dim; Sq not a multiple of 128, causal and not. f32 runs them
+    # too, and the edges of its own tiles: F32_KEYS keys, and F32_ROWS
+    # flattened rows, F32_ROWS / 4 positions at GQA 4:1
+    f32_edges = {fa.F32_KEYS + e for e in (-1, 1)} | {
+        fa.F32_ROWS // 4 + e for e in (-1, 1)} | {2 * fa.F32_KEYS + 1}
     for s_len in (63, 65, 129):
         for d in HEAD_DIMS:
             check_b9(1, s_len, s_len, 8, 2, d, torch.bfloat16)
+    for s_len in sorted({63, 65, 129} | f32_edges):
+        for d in HEAD_DIMS:
+            check_b9(1, s_len, s_len, 8, 2, d, torch.float32)
+    for sq, sk in ((fa.F32_KEYS - 1, 2 * fa.F32_KEYS + 1),
+                   (fa.F32_ROWS // 4 + 1, fa.F32_KEYS + 1)):
+        check_b9(1, sq, sk, 8, 2, 64, torch.float32, causal=False)
+    # a window that starts inside a key tile; G = 3; three q tiles, so that
+    # the middle one rides alone in its block
+    check_b9(1, 100, 100, 8, 2, 64, torch.float32,
+             window=fa.F32_KEYS // 2 + 3)
+    check_b9(1, 100, 100, 6, 2, 128, torch.float32)
+    check_b9(2, 3 * fa.F32_ROWS // 4, 3 * fa.F32_ROWS // 4, 8, 2, 128,
+             torch.float32)
     check_b9(2, 200, 200, 8, 2, 128, torch.bfloat16)
     check_b9(1, 200, 333, 8, 2, 64, torch.bfloat16, causal=False)
-    # bf16 views one element past a 16-byte boundary, through ops (the
-    # reference's ops.flash_attention takes any array)
-    check_b9(2, 128, 128, 8, 2, 64, torch.bfloat16, off=1)
-    check_b9(1, 200, 200, 8, 2, 128, torch.bfloat16, window=64, off=3)
+    # views 1 and 3 elements past a 16-byte boundary, through ops (the
+    # reference's ops.flash_attention takes any array): bf16 B9 gets
+    # aligned copies, f32 B9 reads them as they are, with plain loads
+    for dtype in both:
+        check_b9(2, 128, 128, 8, 2, 64, dtype, off=1)
+        check_b9(1, 200, 200, 8, 2, 128, dtype, window=64, off=3)
     # the path's shapes: the prefill of 128 tokens (and its window run;
     # f32 on the path, bf16 as the twin), the bf16 serving prefill of
     # 512, then qwen3's prefill shape
@@ -600,7 +636,7 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
 
     def counts_only(label, counts, b9):
         expect_counts(label, counts, {name: (b9 if name == "flash_attention"
-                                             else 0) for name in counts})
+                                             else 0) for name in counted()})
         add(counts)
 
     # -- 9b. qwen3-1.7b at full width, bf16 -------------------------------
@@ -927,7 +963,7 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
 
     def counts_only(label, counts, b10):
         expect_counts(label, counts, {name: (b10 if name == "rwkv6_scan"
-                                             else 0) for name in counts})
+                                             else 0) for name in counted()})
         add(counts)
 
     # -- 11b. rwkv6-7b at full width, bf16 -------------------------------
@@ -1614,7 +1650,7 @@ def llm_training(dev, add, expect_counts) -> None:
     peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     n_b9 = (TRAIN_ROUNDS + 1) * TRAIN_STEPS * TRAIN_K * TRAIN_LAYERS
-    expect = {name: 0 for name in counts}
+    expect = {name: 0 for name in counted()}
     expect.update(flat_mix=TRAIN_ROUNDS + 1, cnd_bitmaps=1, cnd_popcount=1,
                   flash_attention=n_b9)
     expect_counts("train full", counts, expect)
@@ -1785,7 +1821,7 @@ def llm_training(dev, add, expect_counts) -> None:
     shutil.rmtree(ckpt, ignore_errors=True)
     counts = read_counts()
     layers = federated_llm.model_100m().num_layers
-    expect = {name: 0 for name in counts}
+    expect = {name: 0 for name in counted()}
     expect.update(flat_mix=FLLM_ROUNDS + 1, cnd_bitmaps=1, cnd_popcount=1,
                   flash_attention=(FLLM_ROUNDS + 1) * 2 * 4 * layers)
     expect_counts("federated_llm", counts, expect)
@@ -1865,11 +1901,14 @@ def main() -> None:
     print("build digests " + " ".join(
         f"{name}={_build.digest(name)}" for name in sorted(logs)),
         flush=True)
-    for lib in ("consensus_mix", "rwkv6_scan", "robust_agg", "sparse_mix"):
+    for lib in ("consensus_mix", "rwkv6_scan", "robust_agg", "sparse_mix",
+                "flash_attention"):
         for name, n_regs, st, ld in ptxas_kernels(logs[lib]):
             print(f"ptxas {lib} {name} registers={n_regs} "
                   f"spill_stores={st} spill_loads={ld}", flush=True)
-            if lib in ("robust_agg", "sparse_mix") and (st or ld):
+            # f32 B9 is f32::flash_kernel<D> (mangled ..3f3212flash_kernel..)
+            if (lib in ("robust_agg", "sparse_mix")
+                    or "3f3212flash_kernel" in name) and (st or ld):
                 fail(f"{lib} kernel {name} spills ({st} bytes stored, {ld} "
                      f"loaded)")
     sass = subprocess.run(
@@ -3169,6 +3208,9 @@ def main() -> None:
                           "bytes_once", "bytes_gather", "library", "flop",
                           "rows_per_tile", "gathers_per_tile",
                           "plan_build_s") if key in row}})
+        if name == "flash_attention":    # the path's launches by dtype
+            table[-1].update({f"launches_{dt}": totals[f"flash_attention_{dt}"]
+                              for dt in B9_SPLIT})
     print("loaded libraries " + " ".join(
         f"lib{name}.{key}.so" for name, key in
         sorted(_build.loaded_digests.items())), flush=True)

@@ -22,19 +22,57 @@
 // So the two instantiations differ:
 //
 // * f32 (namespace f32): f32 FMAs on the CUDA cores. "f32 means f32": TF32
-//   would keep about three decimal digits and break the 2e-5 gate. A block
-//   of 256 threads owns 64 query rows of one (batch, head) and walks the
-//   key blocks of 64 in order: the loop inside the block takes the place
-//   of the TPU's sequential grid axis. Thread (ty, tx), ty, tx in [0, 16),
-//   owns query rows ty + 16i (i < 4), score columns tx + 16j (j < 4) and
-//   output columns tx + 16c (c < D/16), so its running max and denominator
-//   sit in registers and a row's reductions are four shuffles within a
-//   half-warp. q (scaled in f32 as it is loaded) and k are staged
-//   transposed, as [D][64 + 1] f32, so both operands of a score FMA come
-//   from conflict-free shared-memory rows; the probabilities go through
-//   shared memory ([64][80]) to meet the [64][D] v tile, which reuses k's
-//   buffer. At D=128 a block takes 85 KB of dynamic shared memory (opted
-//   in), so two blocks share an SM.
+//   would keep about three decimal digits and break the 2e-5 gate. Its
+//   path's shape is the f32 serving prefill and every qwen3-1.7b training
+//   forward: B=4 S=128 H=16 KV=8 D=128 causal, 270 MFLOP on 3 MB, bound by
+//   the operations at 0.00404 ms (67 TFLOP/s), about 4 us of work spread
+//   over 132 SMs, so parallelism, balance and the copies' latency matter
+//   as much as the FMA rate.
+//   - Rows. The G query heads of a kv head share its k and v, so a q tile
+//     is 32 flattened (position, head) rows of one (batch, kv head), row R
+//     being position R / G of head kv_head * G + R % G: each staged k/v
+//     tile serves G heads. A block owns two q tiles, p and nt - 1 - p:
+//     under a causal mask the shortest rows ride with the longest, so the
+//     blocks do about the same work and share each k/v tile (128 blocks of
+//     8 warps at the path's shape, one an SM).
+//   - Lanes. A row is shared by L = 16 lanes (8 at D = 32). A lane owns 4
+//     rows, their score columns x + L j of a tile of 64 keys (j < 64 / L)
+//     and their output columns 4x + 4L c .. + 3, so both products read
+//     float4 operands from shared memory for 8 to 10.7 FMAs a read; the
+//     running max m, the lane's share of the denominator l and the
+//     accumulator stay in registers, and a row's max takes log2 L
+//     shuffles (its l shares are added once, at the end).
+//   - Key chunks. Keys L j .. L j + L - 1 of a tile form chunk j; a warp
+//     runs only the chunks that hold a live pair for its rows, through a
+//     step instantiated for each count of live chunks, so no branch sits
+//     in the inner loops (a branch per chunk in the score loop ran 1.57x
+//     slower than no skip at all), and the causal diagonal costs 16-key
+//     chunks, not tiles.
+//   - Copies. q, then k and v of each key tile go through a ring of two
+//     stages with 16-byte cp.async copies by every thread; the scores of
+//     the first tile wait for q and its k only, and the next tile's k and
+//     v are issued as a tile starts, so they land under its products.
+//     Inputs that are not 16-byte aligned are staged with plain loads.
+//   - Softmax. In f32 on raw scores, exp2 with scale * log2 e folded in;
+//     keys past Sk are zeros, so a dead key's p = 0 meets a finite v.
+//   - Shared memory: 184,320 bytes at D = 128 (102,400 at 64, 61,440 at
+//     32), opted in; q [64][D + 4], k [64][D + 4] and v [64][D] a stage,
+//     p [64][68]. The pitch D + 4 puts the float4 reads of 8 k rows on 32
+//     banks, and 68 the p stores of a warp's two row groups on disjoint
+//     banks. ptxas: 168 registers at D = 128, 152 at 64, 168 at 32, no
+//     spills (chip_smoke.py prints them and fails on a spill).
+//   - Measured (PERF.md, section 6): about 4.7 us pass before a block's
+//     first scores (its arithmetic setup, about 1 us, and the first
+//     copies), and the tile steps run the FMAs at about a third of their
+//     peak. Tried, each against the kept design in one run on the same
+//     card, and dropped: 2 rows a lane (fewer FMAs a read: 1.07x slower
+//     than 4 rows without the chunk skip), one q tile a block in any order
+//     and 16- or 64-row q tiles or 16-key tiles with 2 rows a lane (no
+//     faster than pairs), one producer warp issuing every copy against
+//     mbarriers (by cp.async 1.16x, by bulk TMA rows 1.05x slower: a single
+//     warp issues too slowly), and clusters of 4 blocks sharing each k/v
+//     tile by multicast (2.07x slower: clusters of four 184 KB blocks fit
+//     on fewer SMs and ran in two waves).
 //
 // * bf16 (namespace tc): the products run on the tensor cores (wgmma, bf16
 //   in, f32 accumulators), fed by TMA.
@@ -121,192 +159,422 @@ cudaError_t opt_in_smem(int bytes) {
 
 namespace f32 {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per block step
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kTPad = 1;       // row pad of the transposed q and k tiles
-constexpr int kPStride = kBK + 16;  // probabilities row stride (no conflicts)
+constexpr int kRows = 32;   // flattened (position, head) rows a q tile
+constexpr int kKeys = 64;   // keys a tile
+constexpr int kR = 4;       // rows a lane
+constexpr float kLog2e = 1.4426950408889634f;
 
+// Lanes and shared-memory plan of head dim D. A row is shared by L lanes
+// (16, or 8 at D = 32, where 8 lanes of 4 columns cover the row): a lane
+// owns kR rows, their score columns x + L j (j < KJ: key chunk j of a
+// tile is keys L j .. L j + L - 1) and their output columns 4x + 4L c ..
+// + 3 (c < NC), so a warp owns kR * 32 / L rows and WT warps own a q tile.
+// A block owns two q tiles (2 WT warps). In floats: q [2 kRows][QP], two
+// stages of k [kKeys][QP] and v [kKeys][D], p [2 kRows][PP]. Every
+// shared-memory read is a float4 that 8 lanes of a quarter warp take from
+// one address (q, p) or from 8 rows that the pitch D + 4 puts on 32
+// different banks (k), or 8 consecutive float4 (v); PP = kKeys + 4 puts
+// the p stores of a warp's two row groups on disjoint banks (L = 16).
 template <int D>
-__host__ __device__ constexpr size_t smem_floats() {
-  // q^T [D][kBQ+1], k^T [D][kBK+1] (v [kBK][D] reuses it), p [kBQ][kPStride]
-  return (size_t)D * (kBQ + kTPad) +
-         ((size_t)D * (kBK + kTPad) > (size_t)kBK * D
-              ? (size_t)D * (kBK + kTPad) : (size_t)kBK * D) +
-         (size_t)kBQ * kPStride;
+struct Plan {
+  static constexpr int L = D >= 64 ? 16 : 8;
+  static constexpr int WROWS = kR * 32 / L;  // rows a warp
+  static constexpr int WT = kRows / WROWS;   // warps a q tile
+  static constexpr int THREADS = 2 * 32 * WT;
+  static constexpr int KJ = kKeys / L;       // key chunks a tile
+  static constexpr int NC = D / (4 * L);     // float4 output chunks a lane
+  static constexpr int QP = D + 4;
+  static constexpr int PP = kKeys + 4;
+  static constexpr int K_FLOATS = kKeys * QP;
+  static constexpr int STAGE = K_FLOATS + kKeys * D;
+  static constexpr int KV_OFF = 2 * kRows * QP;
+  static constexpr int P_OFF = KV_OFF + 2 * STAGE;
+  static constexpr int BYTES = (P_OFF + 2 * kRows * PP) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n of this thread's copy groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-__device__ __forceinline__ float row_max16(float x) {
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16 bytes from global memory into shared memory: cp.async when the
+// source is 16-byte aligned (vec), else four plain loads
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       int vec) {
+  if (vec) {
+    cp_async16(dst, src);
+  } else {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+    for (int u = 0; u < 4; ++u) dst[u] = src[u];
+  }
+}
+
+// x over the L lanes of a row group (lanes L ry .. L ry + L - 1)
+template <int L>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = 1; off < L; off <<= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
-
-__device__ __forceinline__ float row_sum16(float x) {
+template <int L>
+__device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 1; off < L; off <<= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
+__device__ __forceinline__ bool live(int kp, int qp, int sk, int causal,
+                                     int window) {
+  return kp < sk && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// keys [lo, hi) that can be live for flattened rows [r_lo, r_hi]
+__device__ __forceinline__ void key_range(int r_lo, int r_hi, int g, int sk,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
+  lo = window > 0 ? max(0, r_lo / g - window + 1) : 0;
+  hi = causal ? min(sk, r_hi / g + 1) : sk;
+}
+
+// A lane's rows and their state: shared-memory row lr, position qp,
+// running max m (raw score units), this lane's share of the denominator l
+// (its keys x + L j; the L lanes' shares are added at the end), and the
+// output accumulator (columns 4x + 4L c .. + 3).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct Rows {
+  int lr[kR], qp[kR];
+  float m[kR], l[kR];
+  float4 acc[kR][Plan<D>::NC];
+};
+
+// The scores of one key tile for one warp's rows, over its key chunks
+// j_lo .. j_lo + NJ - 1 (the chunks that hold a live pair for the warp:
+// NJ is a template argument so that the inner loops carry no branch),
+// then the online softmax, which leaves p in the warp's rows of sP.
+template <int D, int NJ>
+__device__ __forceinline__ void score_step(Rows<D>& st, const float* sQ,
+                                           float* sP, const float* cK, int x,
+                                           int k0, int j_lo, bool all_live,
+                                           int sk, int causal, int window,
+                                           float scale_log2) {
+  using P = Plan<D>;
+  constexpr int L = P::L, NC = P::NC, QP = P::QP, PP = P::PP;
+  const int kx = x + L * j_lo;        // this lane's first key in the tile
+  const float* cKx = cK + kx * QP;
+
+  // -- scores: kR rows x NJ keys a lane, float4 steps along d ------------
+  float s[kR][NJ];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) a[i] = ld4(sQ + st.lr[i] * QP + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 kk = ld4(cKx + L * j * QP + d);
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        s[i][j] = fmaf(a[i].x, kk.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, kk.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, kk.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, kk.w, s[i][j]);
+      }
+    }
+  }
+
+  // -- online softmax in f32, exp2 with scale * log2 e folded in ---------
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    if (!all_live) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (!live(k0 + kx + L * j, st.qp[i], sk, causal, window))
+          s[i][j] = -INFINITY;
+    }
+    float mx = s[i][0];
+#pragma unroll
+    for (int j = 1; j < NJ; ++j) mx = fmaxf(mx, s[i][j]);
+    const float m_new = fmaxf(st.m[i], group_max<L>(mx));
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f((st.m[i] - m_use) * scale_log2);
+    const float nb = -m_use * scale_log2;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float p = exp2f(fmaf(s[i][j], scale_log2, nb));
+      sP[st.lr[i] * PP + kx + L * j] = p;
+      rs += p;
+    }
+    st.l[i] = st.l[i] * alpha + rs;
+    st.m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      st.acc[i][c].x *= alpha;
+      st.acc[i][c].y *= alpha;
+      st.acc[i][c].z *= alpha;
+      st.acc[i][c].w *= alpha;
+    }
+  }
+  __syncwarp();   // the warp's p rows complete
+}
+
+// p . v over key chunks j_lo .. j_lo + NJ - 1: kR rows x 4 NC columns a
+// lane, 4 keys a step
+template <int D, int NJ>
+__device__ __forceinline__ void pv_step(Rows<D>& st, const float* sP,
+                                        const float* cV, int x, int j_lo) {
+  using P = Plan<D>;
+  constexpr int L = P::L, NC = P::NC, PP = P::PP;
+#pragma unroll 2
+  for (int kc = 0; kc < NJ * L; kc += 4) {
+    const int key = j_lo * L + kc;
+    float pr[kR][4];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const float4 p4 = ld4(sP + st.lr[i] * PP + key);
+      pr[i][0] = p4.x;
+      pr[i][1] = p4.y;
+      pr[i][2] = p4.z;
+      pr[i][3] = p4.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = ld4(cV + (key + u) * D + 4 * x + 4 * L * c);
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          st.acc[i][c].x = fmaf(pr[i][u], vv.x, st.acc[i][c].x);
+          st.acc[i][c].y = fmaf(pr[i][u], vv.y, st.acc[i][c].y);
+          st.acc[i][c].z = fmaf(pr[i][u], vv.z, st.acc[i][c].z);
+          st.acc[i][c].w = fmaf(pr[i][u], vv.w, st.acc[i][c].w);
+        }
+      }
+  }
+}
+
+template <int N>
+struct Chunks {
+  static constexpr int value = N;
+};
+
+// f(Chunks<nj>{}) for the chunk count nj, 1 <= nj <= NJ (nothing for
+// nj < 1): the runtime count picks a compiled step
+template <int NJ, typename F>
+__device__ __forceinline__ void with_chunks(int nj, F&& f) {
+  if constexpr (NJ >= 1) {
+    if (nj == NJ)
+      f(Chunks<NJ>{});
+    else
+      with_chunks<NJ - 1>(nj, f);
+  }
+}
+
+// Block x of the grid owns the q tiles p and nt - 1 - p of the (batch, kv
+// head) x % (B * KV), p = x / (B * KV): under a causal mask the tile of
+// the shortest rows rides with the tile of the longest, so every block
+// does about the same work, and the two share each staged k/v tile.
+// kernels/flash_attention.py::f32_blocks is its Python twin.
+template <int D>
+__global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int sq,
-             int sk,
-             int h, int kvh, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  float* s_q = smem;                                  // [D][kBQ + kTPad]
-  float* s_kv = s_q + D * (kBQ + kTPad);              // k^T, then v
-  float* s_p = smem + smem_floats<D>() - kBQ * kPStride;  // [kBQ][kPStride]
-  constexpr int kDC = D / 16;                         // output cols a thread
+             const float* __restrict__ v, float* __restrict__ out, int batch,
+             int sq, int sk, int h, int kvh, int causal, int window,
+             float scale_log2, int vec) {
+  using P = Plan<D>;
+  constexpr int L = P::L, KJ = P::KJ, NC = P::NC, QP = P::QP;
+  constexpr int WROWS = P::WROWS, WT = P::WT, THREADS = P::THREADS;
+  extern __shared__ __align__(16) float smem[];
+  float* const sQ = smem;                  // rows of tile a, then of tile b
+  float* const sP = smem + P::P_OFF;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int nq = (sq + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;    // longest rows first
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kv_head = head / (h / kvh);
-  const size_t q_pos = (size_t)h * D;                 // stride of a position
-  const size_t kv_pos = (size_t)kvh * D;
-  const float* qb = q + (size_t)b * sq * q_pos + (size_t)head * D;
-  const float* kb = k + (size_t)b * sk * kv_pos + (size_t)kv_head * D;
-  const float* vb = v + (size_t)b * sk * kv_pos + (size_t)kv_head * D;
-  float* ob = out + (size_t)b * sq * q_pos + (size_t)head * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ry = lane / L, x = lane % L;
+  const int g = h / kvh;
+  const int rows = sq * g;                 // flattened rows of a kv head
+  const int nt = (rows + kRows - 1) / kRows;
+  const int nbk = batch * kvh;
+  const int pair = (int)(blockIdx.x / nbk);
+  const int bk = (int)(blockIdx.x % nbk), b = bk / kvh, kv_head = bk % kvh;
+  const int tile_a = pair, tile_b = nt - 1 - pair;   // tile_b >= tile_a
+  // flattened row R is position R / g of head kv_head * g + R % g, at
+  // q_base + (R / g) * H * D + (R % g) * D
+  const size_t q_pos = (size_t)h * D, kv_pos = (size_t)kvh * D;
+  const size_t q_base = (size_t)b * sq * q_pos + (size_t)kv_head * g * D;
+  const size_t kv_base = (size_t)b * sk * kv_pos + (size_t)kv_head * D;
+  auto q_off = [&](int r) {
+    return q_base + (size_t)(r / g) * q_pos + (size_t)(r % g) * D;
+  };
+  // the flattened row of shared-memory row lr (-1: none)
+  auto row_of = [&](int lr) {
+    const int half = lr / kRows;
+    if (half == 1 && tile_b == tile_a) return -1;
+    const int r = (half ? tile_b : tile_a) * kRows + lr % kRows;
+    return r < rows ? r : -1;
+  };
 
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D, qp = q0 + r;
-    s_q[d * (kBQ + kTPad) + r] =
-        qp < sq ? qb[(size_t)qp * q_pos + d] * scale : 0.f;
+  // keys that can be live for some row of the block: the union of both
+  // tiles' ranges, walked in tiles of kKeys
+  int lo_a, hi_a, lo_b, hi_b;
+  key_range(tile_a * kRows, min(rows, (tile_a + 1) * kRows) - 1, g, sk,
+            causal, window, lo_a, hi_a);
+  key_range(tile_b * kRows, min(rows, (tile_b + 1) * kRows) - 1, g, sk,
+            causal, window, lo_b, hi_b);
+  const int k_lo = min(lo_a, lo_b), k_hi = max(hi_a, hi_b);
+  const int t0 = k_lo / kKeys;
+  const int n_tiles =
+      k_hi > t0 * kKeys ? (k_hi - t0 * kKeys + kKeys - 1) / kKeys : 0;
+  // this warp's rows and the keys that can be live for them
+  const int wl0 = (warp / WT) * kRows + (warp % WT) * WROWS;
+  const int wr0 = row_of(wl0);
+  const bool warp_rows = wr0 >= 0;
+  const int wr1 = warp_rows ? min(rows - 1, wr0 + WROWS - 1) : 0;
+  int wk_lo, wk_hi;
+  key_range(wr0, wr1, g, sk, causal, window, wk_lo, wk_hi);
+  const int wp_first = wr0 / g, wp_last = wr1 / g;
+
+  // k (v) of key tile t (kKeys keys from t * kKeys) into stage s; keys
+  // past sk are zeros, so that a dead key's p = 0 meets a finite v
+  auto stage = [&](const float* src, int t, int s, int is_v) {
+    float* dst = smem + P::KV_OFF + s * P::STAGE + (is_v ? P::K_FLOATS : 0);
+    const int pitch = is_v ? D : QP;
+    const int k0 = t * kKeys;
+    for (int i = tid; i < kKeys * (D / 4); i += THREADS) {
+      const int c = i / (D / 4), d = (i % (D / 4)) * 4, kp = k0 + c;
+      if (kp < sk)
+        stage4(dst + c * pitch + d, src + kv_base + (size_t)kp * kv_pos + d,
+               vec);
+      else
+        *reinterpret_cast<float4*>(dst + c * pitch + d) =
+            make_float4(0, 0, 0, 0);
+    }
+  };
+
+  // copy groups: q with the first k tile, then the first v tile (the
+  // scores of tile 0 need only the first), then k and v of each next tile
+  for (int i = tid; i < 2 * kRows * (D / 4); i += THREADS) {
+    const int lr = i / (D / 4), d = (i % (D / 4)) * 4, r = row_of(lr);
+    if (r >= 0)
+      stage4(sQ + lr * QP + d, q + q_off(r) + d, vec);
+    else
+      *reinterpret_cast<float4*>(sQ + lr * QP + d) = make_float4(0, 0, 0, 0);
+  }
+  if (n_tiles > 0) stage(k, t0, 0, 0);
+  cp_async_commit();
+  if (n_tiles > 0) stage(v, t0, 0, 1);
+  cp_async_commit();
+
+  // this lane's rows: their flattened rows gr and their state
+  Rows<D> st;
+  int gr[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    st.lr[i] = wl0 + ry * kR + i;
+    gr[i] = row_of(st.lr[i]);
+    st.qp[i] = gr[i] / g;
+    st.m[i] = -INFINITY;
+    st.l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) st.acc[i][c] = make_float4(0, 0, 0, 0);
   }
 
-  float acc[4][kDC], m_i[4], l_i[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDC; ++c) acc[i][c] = 0.f;
-  }
-
-  // keys that can be live for some row of this block
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();   // q staged (first pass); v and p consumed (later)
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e % D, kp = k0 + c;
-      s_kv[d * (kBK + kTPad) + c] =
-          kp < sk ? kb[(size_t)kp * kv_pos + d] : 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t == 0)
+      cp_async_wait<1>();   // q and k of tile 0 (v of tile 0 in flight)
+    else
+      cp_async_wait<0>();
+    __syncthreads();   // k of tile t staged; every warp done with t - 1
+    if (t + 1 < n_tiles) {
+      stage(k, t0 + t + 1, (t + 1) & 1, 0);
+      stage(v, t0 + t + 1, (t + 1) & 1, 1);
     }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_q[d * (kBQ + kTPad) + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = s_kv[d * (kBK + kTPad) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool live = kp < sk && (!causal || kp <= qp) &&
-                          (window <= 0 || kp > qp - window);
-        if (!live) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_i[i], row_max16(mx));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m_i[i] - m_use);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        s_p[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        rs += p;
-      }
-      l_i[i] = l_i[i] * alpha + row_sum16(rs);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();   // k consumed, p complete
-
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int c = e / D, d = e % D, kp = k0 + c;
-      s_kv[c * D + d] = kp < sk ? vb[(size_t)kp * kv_pos + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4], vv[kDC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_p[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int cc = 0; cc < kDC; ++cc) vv[cc] = s_kv[c * D + tx + 16 * cc];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < kDC; ++cc)
-          acc[i][cc] = fmaf(p[i], vv[cc], acc[i][cc]);
-    }
-  }
-
-  // rows with no live key at all: the uniform average of v over all keys
-  bool dead[4];
-  bool any_dead = false;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    const int lo = window > 0 ? max(0, qp - window + 1) : 0;
-    const int hi = causal ? min(qp, sk - 1) : sk - 1;
-    dead[i] = qp < sq && lo > hi;
-    any_dead |= dead[i];
-  }
-  if (__syncthreads_or(any_dead)) {
-    for (int k0 = 0; k0 < sk; k0 += kBK) {
+    cp_async_commit();
+    const float* cK = smem + P::KV_OFF + (t & 1) * P::STAGE;
+    const float* cV = cK + P::K_FLOATS;
+    const int k0 = (t0 + t) * kKeys;
+    // the key chunks [j_lo, j_hi) of this tile that hold a live pair for
+    // this warp's rows; the others are skipped (they would leave m, l
+    // and acc as they are)
+    const int j_lo = warp_rows ? max(0, (wk_lo - k0) / L) : 0;
+    const int j_hi = warp_rows ? min(KJ, (wk_hi - k0 + L - 1) / L) : 0;
+    const int nj = j_hi - j_lo;
+    const bool all_live = k0 + kKeys <= sk &&
+                          (!causal || k0 + kKeys - 1 <= wp_first) &&
+                          (window <= 0 || k0 > wp_last - window);
+    with_chunks<KJ>(nj, [&](auto n) {
+      score_step<D, decltype(n)::value>(st, sQ, sP, cK, x, k0, j_lo,
+                                        all_live, sk, causal, window,
+                                        scale_log2);
+    });
+    if (t == 0) {
+      cp_async_wait<1>();   // v of tile 0 (tile 1 in flight)
       __syncthreads();
-      for (int e = tid; e < kBK * D; e += kThreads) {
-        const int c = e / D, d = e % D, kp = k0 + c;
-        s_kv[c * D + d] = kp < sk ? vb[(size_t)kp * kv_pos + d] : 0.f;
-      }
-      __syncthreads();
-      for (int c = 0; c < kBK; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int cc = 0; cc < kDC; ++cc)
-            if (dead[i]) acc[i][cc] += s_kv[c * D + tx + 16 * cc];
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (dead[i]) l_i[i] = (float)sk;
+    with_chunks<KJ>(nj, [&](auto n) {
+      pv_step<D, decltype(n)::value>(st, sP, cV, x, j_lo);
+    });
   }
 
+  // -- epilogue ---------------------------------------------------------
+  cp_async_wait<0>();   // no copy outlives the block (n_tiles == 0)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= sq) continue;
-    const float denom = fmaxf(l_i[i], 1e-30f);
+  for (int i = 0; i < kR; ++i) {
+    float denom = group_sum<L>(st.l[i]);
+    if (gr[i] < 0) continue;
+    // a row with no live key at all: the uniform average of v over all
+    // keys
+    const int lo = window > 0 ? max(0, st.qp[i] - window + 1) : 0;
+    const int hi = causal ? min(st.qp[i], sk - 1) : sk - 1;
+    if (lo > hi) {
 #pragma unroll
-    for (int cc = 0; cc < kDC; ++cc)
-      ob[(size_t)qp * q_pos + tx + 16 * cc] = acc[i][cc] / denom;
+      for (int c = 0; c < NC; ++c) st.acc[i][c] = make_float4(0, 0, 0, 0);
+      for (int j = 0; j < sk; ++j) {
+        const float* vr = v + kv_base + (size_t)j * kv_pos + 4 * x;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          st.acc[i][c].x += vr[4 * L * c];
+          st.acc[i][c].y += vr[4 * L * c + 1];
+          st.acc[i][c].z += vr[4 * L * c + 2];
+          st.acc[i][c].w += vr[4 * L * c + 3];
+        }
+      }
+      denom = (float)sk;
+    }
+    const float inv = 1.f / fmaxf(denom, 1e-30f);
+    float* orow = out + q_off(gr[i]) + 4 * x;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 o = make_float4(st.acc[i][c].x * inv, st.acc[i][c].y * inv,
+                                   st.acc[i][c].z * inv, st.acc[i][c].w * inv);
+      if (vec) {
+        *reinterpret_cast<float4*>(orow + 4 * L * c) = o;
+      } else {
+        orow[4 * L * c] = o.x;
+        orow[4 * L * c + 1] = o.y;
+        orow[4 * L * c + 2] = o.z;
+        orow[4 * L * c + 3] = o.w;
+      }
+    }
   }
 }
 
@@ -314,15 +582,18 @@ template <int D>
 int run(const void* q, const void* k, const void* v, void* out, int b, int sq,
         int sk, int h, int kvh, int causal, int window, float scale,
         void* stream) {
-  const int bytes = (int)(smem_floats<D>() * sizeof(float));
-  const cudaError_t err = opt_in_smem<flash_kernel<D>>(bytes);
+  const cudaError_t err = opt_in_smem<flash_kernel<D>>(Plan<D>::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_kernel<D><<<grid, kThreads, bytes,
+  const int nt = (sq * (h / kvh) + kRows - 1) / kRows;
+  const int vec = ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  flash_kernel<D><<<(nt + 1) / 2 * b * kvh, Plan<D>::THREADS, Plan<D>::BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, sk, h, kvh,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), b, sq, sk, h,
+      kvh, causal, window, scale * kLog2e, vec);
   return cudaGetLastError();
 }
 

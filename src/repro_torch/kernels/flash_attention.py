@@ -7,7 +7,9 @@ CUDA tensors only (see :mod:`repro_torch.kernels.consensus_mix` for the
 conventions). The kernel has no backward, as the TPU kernel has none, so
 the wrapper refuses inputs that require grad. The bf16 kernel reads q, k
 and v through TMA, which needs 16-byte aligned tensors; the wrapper
-refuses others. It counts its launches in its ``launches`` attribute.
+refuses others (the f32 kernel takes any f32 view). It counts its
+launches in its ``launches`` attribute, and apart by dtype in
+``launches_f32`` and ``launches_bf16``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,30 @@ from repro_torch.kernels.consensus_mix import _check_cuda, _require, _stream
 _LIB = "flash_attention"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64, 128)
+# the f32 kernel's tiles (csrc/flash_attention.cu, namespace f32): a q tile
+# is F32_ROWS flattened (position, head) rows of one (batch, kv head), row
+# R being position R // G of query head kv_head * G + R % G; a block owns
+# two q tiles and walks the keys in tiles of F32_KEYS, each cut into key
+# chunks of f32_lanes(D) keys (a lane owns one key of each chunk)
+F32_ROWS = 32
+F32_KEYS = 64
+
+
+def f32_lanes(d: int) -> int:
+    """Lanes that share a row in the f32 kernel: 16, or 8 at D = 32."""
+    return 16 if d >= 64 else 8
+
+
+def f32_blocks(b: int, sq: int, h: int, kvh: int) -> list:
+    """(batch, kv head, q tile, q tile) of each block of the f32 kernel,
+    in block order: block x owns q tiles p and nt - 1 - p of the (batch,
+    kv head) ``x % (B * KV)``, p = ``x // (B * KV)`` (the kernel's own
+    formula), so the tile of the shortest causal rows rides with the tile
+    of the longest; an odd middle tile rides alone."""
+    nt = -(-sq * (h // kvh) // F32_ROWS)
+    nbk = b * kvh
+    return [((x % nbk) // kvh, (x % nbk) % kvh, x // nbk, nt - 1 - x // nbk)
+            for x in range((nt + 1) // 2 * nbk)]
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,8 +106,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         h, kvh, d, int(causal), -1 if window is None else int(window),
         d ** -0.5, _stream(dev))
     flash_attention.launches += 1
+    name = f"launches_{_SUFFIX[q.dtype]}"
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
     _build.check(_LIB, fn, code)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
+flash_attention.launches_bf16 = 0

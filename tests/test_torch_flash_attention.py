@@ -9,8 +9,11 @@ bf16), plus ragged lengths, which the Pallas kernel's block asserts
 refuse, against ``repro.models.attention.attend``, and rows with no live
 key. Inputs are made with numpy. The CUDA kernel itself runs only on the
 card (``chip_smoke.py``); here its wrapper's checks run up to the launch,
-and a torch emulation of the bf16 kernel's arithmetic (p passed to the
-p.v product as two bf16 terms) is held to the card's one-ulp gate.
+a torch emulation of the bf16 kernel's arithmetic (p passed to the p.v
+product as two bf16 terms) is held to the card's one-ulp gate, and one of
+the f32 kernel's (its key tiles, exp2 fold and order of the denominator's
+partial sums) to the Pallas kernel and ``attend`` at 2e-5, with the Python
+twin of its block order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -343,3 +346,179 @@ def test_ops_hands_b9_aligned_copies_of_unaligned_bf16_views(name,
     ops.flash_attention(args["q"], args["k"], args["v"])
     assert torch.equal(seen[name], args[name])
     assert seen[name].data_ptr() != args[name].data_ptr()
+
+
+# -- the f32 kernel's arithmetic, emulated ----------------------------------
+# On the card the f32 kernel walks the keys in tiles of F32_KEYS for q tiles
+# of F32_ROWS flattened (position, head) rows, two q tiles a block. Per key
+# tile it takes the raw scores q . k in f32, masks the dead pairs, keeps the
+# running max m in raw score units and p = 2^(s * scale * log2 e - m *
+# scale * log2 e) (the scale folded into exp2), rescales the accumulator by
+# alpha, and adds p . v. A row is shared by L = f32_lanes(D) lanes; lane x
+# holds the keys x + L j of a tile and keeps its own share of the
+# denominator l, its p added in the order j = 0, 1, ...; the L shares are
+# added at the end by a butterfly (xor 1, 2, 4, ..). A row with no live key
+# gets the sum of v over all Sk keys over Sk. The emulation below repeats
+# those steps in torch on the CPU and is held to the Pallas kernel in
+# interpret mode and to ``attend`` at the card's 2e-5 gate; it runs none of
+# the CUDA kernel, which chip_smoke.py checks on the card.
+
+def _emulate_f32_kernel(q, k, v, *, causal, window, skip_dead=False):
+    """``skip_dead``: leave out, row by row, the key tiles with no live key
+    for the row, as the kernel leaves out the key chunks with no live pair
+    for a warp's rows; it must change no bit."""
+    tile = tfa.F32_KEYS
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g, lanes = h // kvh, tfa.f32_lanes(d)
+    qf = q.permute(0, 2, 1, 3)                               # (B, H, Sq, D)
+    kf = k.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    qp = torch.arange(sq)[:, None]
+    c = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    l = torch.zeros((b, h, sq, lanes))      # one share per lane x
+    o = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, tile):
+        kp = torch.arange(k0, min(k0 + tile, sk))[None, :]
+        live = torch.ones((sq, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window is not None:
+            live &= kp > qp - window
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        s = torch.where(live, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2((m - m_use) * c)
+        p = torch.exp2(s * c + (-m_use * c))
+        pad = torch.nn.functional.pad(p, (0, tile - p.shape[-1]))
+        pj = pad.view(b, h, sq, tile // lanes, lanes)        # [.., j, x]
+        rs = pj[..., 0, :]
+        for j in range(1, tile // lanes):
+            rs = rs + pj[..., j, :]
+        l_new = l * alpha + rs
+        o_new = o * alpha + p @ vf[:, :, k0:k0 + tile]
+        if skip_dead:
+            keep = ~live.any(dim=-1)[None, None, :, None]
+            l_new = torch.where(keep, l, l_new)
+            o_new = torch.where(keep, o, o_new)
+            m_new = torch.where(keep, m, m_new)
+        l, o, m = l_new, o_new, m_new
+    while l.shape[-1] > 1:                   # the butterfly, as lane 0 sums
+        l = l[..., 0::2] + l[..., 1::2]
+    lo = (qp - window + 1).clamp_min(0) if window is not None else 0 * qp
+    hi = qp.clamp_max(sk - 1) if causal else torch.full_like(qp, sk - 1)
+    dead = (lo > hi)[None, None]                             # (1, 1, Sq, 1)
+    o = torch.where(dead, vf.sum(dim=2, keepdim=True), o)
+    l = torch.where(dead, torch.tensor(float(sk)), l)
+    out = o * (1.0 / l.clamp_min(1e-30))
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,bq,bk", [
+    (1, 128, 128, 2, 2, 64, True, None, 64, 64),    # tests/test_kernels.py
+    (2, 256, 256, 4, 2, 64, True, None, 64, 64),
+    (1, 128, 128, 8, 1, 32, True, None, 64, 64),
+    (1, 512, 512, 2, 2, 128, True, None, 64, 64),
+    (1, 256, 256, 2, 2, 64, True, 32, 64, 64),
+    (1, 256, 256, 2, 2, 64, True, 64, 64, 64),
+    (1, 256, 256, 2, 2, 64, True, 128, 64, 64),
+    (1, 128, 256, 2, 2, 64, False, None, 32, 128),
+])
+def test_f32_kernel_arithmetic_matches_pallas(b, sq, sk, h, kv, d, causal,
+                                              window, bq, bk):
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, sk, h, kv, d, "f32",
+                                   sq + h + d + (window or 0))
+    pallas = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                          block_q=bq, block_k=bk, interpret=True)
+    got = _emulate_f32_kernel(q, k, v, causal=causal, window=window)
+    _close(got, pallas, 2e-5)
+
+
+_T, _R = tfa.F32_KEYS, tfa.F32_ROWS
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,d,causal,window", [
+    (_T - 1, _T - 1, 4, 2, 64, True, None),          # key tile edges, GQA 2:1
+    (_T + 1, _T + 1, 4, 2, 64, True, None),
+    (2 * _T + 1, 2 * _T + 1, 4, 2, 32, True, None),   # 8 lanes a row
+    (2 * _T + 1, 2 * _T + 1, 8, 2, 128, True, None),  # GQA 4:1
+    (_R // 2 + 1, _R // 2 + 1, 4, 2, 64, True, None),  # one past a q tile
+    (3 * _R // 2, 3 * _R // 2, 4, 2, 64, True, None),  # 3 q tiles: one alone
+    (_R + 1, _R + 1, 6, 2, 64, True, None),          # G = 3
+    (100, 100, 4, 2, 64, True, 20),                  # window starts mid-tile
+    (2 * _T + 1, 2 * _T + 1, 4, 4, 32, True, _T + 3),
+    (128, 64, 2, 1, 32, True, 16),                   # rows with no live key
+    (_T + 1, 2 * _T + 1, 4, 2, 64, False, None),     # non-causal Sq < Sk
+    (_T - 1, 3 * _T + 5, 8, 1, 32, False, 24),       # non-causal window, MQA
+])
+def test_f32_kernel_arithmetic_matches_attend_on_tile_edges(sq, sk, h, kv,
+                                                            d, causal,
+                                                            window):
+    (jq, jk, jv), (q, k, v) = _qkv(2, sq, sk, h, kv, d, "f32", sq * sk + h)
+    want = jattention.attend(jq, jk, jv, causal=causal, window=window)
+    got = _emulate_f32_kernel(q, k, v, causal=causal, window=window)
+    _close(got, want, 2e-5)
+    skipped = _emulate_f32_kernel(q, k, v, causal=causal, window=window,
+                                  skip_dead=True)
+    assert torch.equal(skipped, got)
+
+
+@pytest.mark.parametrize("b,sq,h,kv", [
+    (4, 128, 16, 8), (1, 1, 2, 2), (2, 33, 6, 2), (3, 100, 16, 1),
+    (1, 17, 64, 1), (2, 500, 4, 4), (1, 48, 4, 2),
+])
+def test_f32_block_order_pairs_every_q_tile_once(b, sq, h, kv):
+    """The f32 kernel's grid formula (its Python twin): each block owns
+    q tiles p and nt - 1 - p of one (batch, kv head), so every q tile of
+    every (batch, kv head) is owned once, and a causal block's work (the
+    keys its rows reach) is about the same in every block."""
+    blocks = tfa.f32_blocks(b, sq, h, kv)
+    g = h // kv
+    nt = -(-sq * g // tfa.F32_ROWS)
+    owned = sorted((bb, kk, t) for bb, kk, ta, tb in blocks
+                   for t in sorted({ta, tb}))
+    assert owned == [(bb, kk, t) for bb in range(b) for kk in range(kv)
+                     for t in range(nt)]
+    assert all(ta <= tb and ta + tb == nt - 1 for _, _, ta, tb in blocks)
+    # the tiles of one (batch, kv head) hold each of its flattened rows R
+    # (position R // G of query head kv head * G + R % G) once
+    for bb in range(b):
+        for kk in range(kv):
+            rows = sorted(r for b2, k2, ta, tb in blocks if (b2, k2) == (bb, kk)
+                          for t in sorted({ta, tb})
+                          for r in range(t * tfa.F32_ROWS,
+                                         min((t + 1) * tfa.F32_ROWS, sq * g)))
+            assert rows == list(range(sq * g))
+            assert sorted((r // g, kk * g + r % g) for r in rows) == [
+                (pos, kk * g + j) for pos in range(sq) for j in range(g)]
+    # causal: keys a block's rows reach, summed over its two tiles; blocks
+    # of a full pair differ by at most one q tile's width in positions
+    reach = [sum(min(sq, (t + 1) * tfa.F32_ROWS // g) for t in {ta, tb})
+             for _, _, ta, tb in blocks if ta < tb]
+    if reach:
+        assert max(reach) - min(reach) <= tfa.F32_ROWS // g + 1
+
+
+def test_wrapper_counts_f32_and_bf16_launches_apart(monkeypatch):
+    """``launches`` keeps the total; ``launches_f32`` and
+    ``launches_bf16`` split it by dtype (a stand-in library replaces the
+    CUDA one, so the count runs on the CPU)."""
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: 0
+
+    monkeypatch.setattr(tfa, "_check_cuda", lambda *t: t[0].device)
+    monkeypatch.setattr(tfa, "_stream", lambda dev: 0)
+    monkeypatch.setattr(tfa._build, "library", lambda name: Lib())
+    before = (tfa.flash_attention.launches, tfa.flash_attention.launches_f32,
+              tfa.flash_attention.launches_bf16)
+    q, k = torch.zeros((1, 8, 4, 32)), torch.zeros((1, 8, 2, 32))
+    tfa.flash_attention(q, k, k)
+    tfa.flash_attention(q, k, k)
+    tfa.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    after = (tfa.flash_attention.launches, tfa.flash_attention.launches_f32,
+             tfa.flash_attention.launches_bf16)
+    assert [a - b for a, b in zip(after, before)] == [3, 2, 1]
