@@ -93,8 +93,20 @@ forward against autograd of B9's plain version), the training CLI
 through B10, ``--faults crash,corrupt`` and ``--hierarchy`` with their
 ``*_SMOKE ok`` verdicts, the qwen3 run's losses against the CPU's) and
 the twin of ``examples/federated_llm.py`` at qwen3-100m on K=4 for 5
-timed rounds and one under the profiler; the loaded libraries by digest; the kernel table (ten kernels)
-as one JSON line; and the verdict as the last line. Every path
+timed rounds and one under the profiler. Batched fleet sweeps (after the
+Tables): B1 and B2 with their variant axis held against their plain
+versions and, variant by variant, bit for bit against V = 1 launches
+(timed against V single launches, ``torch.baddbmm`` and batched
+``torch.matmul``); the paper's mobility sweep (four scenarios, cdfl and
+cfa, one ``compile_batch`` each, rounds to 80%), rounds to 80% over 4
+seeds for the MLP and the VGG, a K=1024 sparse Manhattan fleet over 4
+seeds, a K=256 bf16 ring over gamma x seeds and a crashed K=256 ring over
+2 seeds, each with 2 variants against their single Sessions, the batch
+against the CPU's, its ms/round against the loop of its single runs in
+turns and a profiled batched round; and the CLI's ``--sweep`` with its
+``SWEEP_SMOKE ok``. Then the loaded libraries by digest; the kernel
+table (ten kernels, B1 and B2 also with their variant axis) as one JSON
+line; and the verdict as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
 after. Exits non-zero, with no verdict, when CUDA is absent or any check
 fails.
@@ -178,6 +190,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 128, 2
 CLI_ROUNDS = 3                # each training CLI run at --quick
 FLLM_ROUNDS = 5               # the federated_llm twin at qwen3-100m, K=4,
                               # then one profiled round
+# batched fleet sweeps: benchmarks/paper_tables.py:168-184, the mobility
+# study's scenarios (None: the static ring)
+MOBILITY_SCENARIOS = {
+    "static_ring": None,
+    "platoon": dict(kind="platoon", speed=20.0, speed_jitter=0.15,
+                    radio_range=250.0, dt=2.0, seed=0),
+    "platoon_split": dict(kind="platoon", speed=20.0, speed_jitter=0.3,
+                          radio_range=250.0, dt=2.0, seed=0),
+    "manhattan": dict(MANHATTAN)}
+SWEEP_SEEDS = 4               # SweepAxes(seeds=4)
+SWEEP_RING_K = 256            # the dense fleet sweeps' ring
+SWEEP_CHECK_ROUNDS = 3        # variants against their single Sessions
+SWEEP_TOL = 1e-5              # of max |param|, batched against single
+SWEEP_BLOCKS, SWEEP_TURN = 2, 3   # ABBA: blocks of 4 turns of 3 rounds
+SWEEP_CRASH = dict(kinds=("crash",), seed=3)   # default rates
 B10_TOL = 2e-5                # B10 against its plain version, of max |value|
 # bf16 rwkv6-7b, each block from the same input: B10 against its plain
 # version, of max |output| (two bf16 ulps at the top of a binade)
@@ -286,6 +313,9 @@ def counted():
 # B9's launches split by dtype (the wrapper counts them apart; its
 # ``launches`` is their sum)
 B9_SPLIT = ("f32", "bf16")
+# B1's and B2's launches with a variant axis (counted apart too, and
+# included in ``launches``)
+VARIANT_AXIS = ("flat_mix", "flat_consensus")
 
 
 def reset_counts() -> None:
@@ -294,15 +324,20 @@ def reset_counts() -> None:
     fa = counted()["flash_attention"]
     for dt in B9_SPLIT:
         setattr(fa, f"launches_{dt}", 0)
+    for name in VARIANT_AXIS:
+        counted()[name].launches_variants = 0
 
 
 def read_counts() -> dict:
-    """Launches by kernel name, and B9's by dtype under
-    ``flash_attention_<dtype>``."""
+    """Launches by kernel name, B9's by dtype under
+    ``flash_attention_<dtype>``, and B1's and B2's with a variant axis
+    under ``<name>_variants``."""
     fa = counted()["flash_attention"]
     return {**{name: fn.launches for name, fn in counted().items()},
             **{f"flash_attention_{dt}": getattr(fa, f"launches_{dt}")
-               for dt in B9_SPLIT}}
+               for dt in B9_SPLIT},
+            **{f"{name}_variants": counted()[name].launches_variants
+               for name in VARIANT_AXIS}}
 
 
 # B1's CUDA kernels (csrc/consensus_mix.cu): the small-K kernel and the
@@ -1328,6 +1363,72 @@ def check_resume(label, exp, data, items, add, expect_counts, dense_only,
           f"node) launches={counts}", flush=True)
 
 
+def pad_cycle(a, n):
+    return np.concatenate([a] * int(np.ceil(n / a.shape[0])))[:n]
+
+
+def table_setup(model, alg):
+    """paper_tables._alg_setup through the port: (loss, init, eval_fn
+    of a device, train config, local steps, raw items, data,
+    n_items)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG, VGG_CONFIG
+    from repro_torch.data import pipeline, redundancy, synthetic
+    from repro_torch.models import simple
+    if model == "mlp":
+        cfg, steps = MLP_CONFIG, 10
+        raw = [redundancy.inject_duplicates(
+            synthetic.synthetic_mnist(seed=i, n=cfg.train_per_node,
+                                      noise=TABLE_NOISE),
+            TABLE_RATIOS[i], seed=i) for i in range(4)]
+        test = synthetic.synthetic_mnist(seed=99, n=cfg.test_per_node * 4,
+                                         noise=TABLE_NOISE)
+        fwd, tloss = simple.mlp_forward, simple.make_mlp_loss(cfg)
+        init = lambda g: simple.mlp_init(g, cfg)
+    else:
+        cfg, steps = VGG_CONFIG, 6
+        raw = [redundancy.inject_duplicates(
+            synthetic.synthetic_bird(
+                seed=i, n=cfg.train_per_node, num_classes=cfg.num_classes,
+                image_size=cfg.image_size, noise=VGG_NOISE),
+            TABLE_RATIOS[i], seed=i) for i in range(4)]
+        test = synthetic.synthetic_bird(
+            seed=99, n=cfg.test_per_node * 4, num_classes=cfg.num_classes,
+            image_size=cfg.image_size, noise=VGG_NOISE)
+        fwd, tloss = simple.vgg_forward, simple.make_vgg_loss(cfg)
+        init = lambda g: simple.vgg_init(g, cfg)
+    nodes = ([redundancy.cnd_dedup(d) for d in raw] if alg == "cdfl"
+             else raw)
+    n_per = np.asarray([d.x.shape[0] for d in nodes])
+    n_max = int(n_per.max())
+    data = {"x": np.stack([pad_cycle(d.x, n_max) for d in nodes]),
+            "y": np.stack([pad_cycle(d.y, n_max) for d in nodes])}
+    n_items = None if (n_per == n_max).all() else n_per
+    raw_items = pipeline.FederatedBatcher(raw, cfg.batch_size,
+                                          steps).node_items()
+    train_cfg = TrainConfig(learning_rate=cfg.learning_rate,
+                            batch_size=cfg.batch_size, beta1=cfg.beta1,
+                            beta2=cfg.beta2, eps=cfg.eps)
+
+    def eval_fn(device):
+        x = torch.as_tensor(test.x, device=device).expand(
+            (4,) + test.x.shape)
+        y = torch.as_tensor(test.y, device=device).expand(
+            (4,) + test.y.shape)
+        return lambda params: simple.accuracy(fwd(params, x), y)
+
+    return (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
+            n_items)
+
+
+def rounds_to_80(acc):
+    """Per station of an (R, K) accuracy series: the first round at 80%
+    (TABLE_ROUNDS where never reached), and whether it was reached."""
+    hit = acc >= 0.8
+    return np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
+                    TABLE_ROUNDS), hit.any(axis=0)
+
+
 def paper_tables(dev, add, expect_counts, dense_only) -> None:
     """The paper's Tables 1-4, MLP and VGG halves, through Experiment and
     EvalCallback; a profiled VGG round; the VGG's f32 guard; the VGG's
@@ -1354,58 +1455,6 @@ def paper_tables(dev, add, expect_counts, dense_only) -> None:
     # the package's convolutions must hold f32 on their own. Rounds to 80%
     # are reported, not gated.
 
-    def pad_cycle(a, n):
-        return np.concatenate([a] * int(np.ceil(n / a.shape[0])))[:n]
-
-    def table_setup(model, alg):
-        """paper_tables._alg_setup through the port: (loss, init, eval_fn
-        of a device, train config, local steps, raw items, data,
-        n_items)."""
-        if model == "mlp":
-            cfg, steps = MLP_CONFIG, 10
-            raw = [redundancy.inject_duplicates(
-                synthetic.synthetic_mnist(seed=i, n=cfg.train_per_node,
-                                          noise=TABLE_NOISE),
-                TABLE_RATIOS[i], seed=i) for i in range(4)]
-            test = synthetic.synthetic_mnist(seed=99, n=cfg.test_per_node * 4,
-                                             noise=TABLE_NOISE)
-            fwd, tloss = simple.mlp_forward, simple.make_mlp_loss(cfg)
-            init = lambda g: simple.mlp_init(g, cfg)
-        else:
-            cfg, steps = VGG_CONFIG, 6
-            raw = [redundancy.inject_duplicates(
-                synthetic.synthetic_bird(
-                    seed=i, n=cfg.train_per_node, num_classes=cfg.num_classes,
-                    image_size=cfg.image_size, noise=VGG_NOISE),
-                TABLE_RATIOS[i], seed=i) for i in range(4)]
-            test = synthetic.synthetic_bird(
-                seed=99, n=cfg.test_per_node * 4, num_classes=cfg.num_classes,
-                image_size=cfg.image_size, noise=VGG_NOISE)
-            fwd, tloss = simple.vgg_forward, simple.make_vgg_loss(cfg)
-            init = lambda g: simple.vgg_init(g, cfg)
-        nodes = ([redundancy.cnd_dedup(d) for d in raw] if alg == "cdfl"
-                 else raw)
-        n_per = np.asarray([d.x.shape[0] for d in nodes])
-        n_max = int(n_per.max())
-        data = {"x": np.stack([pad_cycle(d.x, n_max) for d in nodes]),
-                "y": np.stack([pad_cycle(d.y, n_max) for d in nodes])}
-        n_items = None if (n_per == n_max).all() else n_per
-        raw_items = pipeline.FederatedBatcher(raw, cfg.batch_size,
-                                              steps).node_items()
-        train_cfg = TrainConfig(learning_rate=cfg.learning_rate,
-                                batch_size=cfg.batch_size, beta1=cfg.beta1,
-                                beta2=cfg.beta2, eps=cfg.eps)
-
-        def eval_fn(device):
-            x = torch.as_tensor(test.x, device=device).expand(
-                (4,) + test.x.shape)
-            y = torch.as_tensor(test.y, device=device).expand(
-                (4,) + test.y.shape)
-            return lambda params: simple.accuracy(fwd(params, x), y)
-
-        return (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
-                n_items)
-
     @contextlib.contextmanager
     def process_tf32():
         """TF32 switches as a process starts (cuBLAS off, cuDNN on), the
@@ -1419,11 +1468,6 @@ def paper_tables(dev, add, expect_counts, dense_only) -> None:
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = saved
-
-    def rounds_to_80(acc):
-        hit = acc >= 0.8
-        return np.where(hit.any(axis=0), hit.argmax(axis=0) + 1,
-                        TABLE_ROUNDS), hit.any(axis=0)
 
     def vgg_checks(exp, exp_cpu, data, raw_items, n_items, tloss, diff,
                    cpu_buf3):
@@ -1580,6 +1624,483 @@ def paper_tables(dev, add, expect_counts, dense_only) -> None:
         print(f"table {model} ranking (mean rounds to 80% over the 4 "
               f"stations, lower is faster; reported, not gated): {ranking}",
               flush=True)
+
+
+def variant_kernel_rows(dev, gen, record) -> None:
+    """B1 and B2 with a variant axis (blockIdx.z = variant): each held
+    against its plain version, each variant against a V = 1 launch on its
+    own inputs bit for bit, and timed against V single launches and the
+    batched library call (``torch.baddbmm`` for B1, ``torch.matmul`` for
+    B2). The path's shapes: B1 V=4 K=4 f32 with one shared eta (the paper
+    MLP's seeds sweep), B1 V=4 K=256 bf16 with an eta a variant (the ring
+    fleet's gamma x seeds sweep), B2 V=2 K=256 (the crashed ring fleet's
+    `sent` branch, an eta a variant after the wire guard)."""
+    from repro_torch.kernels import consensus_mix as cm
+    from repro_torch.kernels import ref
+
+    for name, v, k, wdt, shared in (
+            ("flat_mix_variants", 4, 4, torch.float32, True),
+            ("flat_mix_variants", 4, 256, torch.bfloat16, False),
+            ("flat_consensus_variants", 2, 256, None, False)):
+        master = torch.randn((v, k, P), generator=gen, device=dev)
+        eta = torch.rand(((1 if shared else v), k, k), generator=gen,
+                         device=dev)
+        eta.diagonal(dim1=-2, dim2=-1).zero_()
+        eta = eta / eta.sum(dim=-1, keepdim=True)
+        eta = (eta[0] if shared else eta).contiguous()
+        gamma = torch.rand((v,), generator=gen, device=dev) * 0.5 + 0.25
+        eta_v = eta.expand(v, k, k)
+        if name == "flat_mix_variants":
+            wire = master if wdt == torch.float32 else master.to(wdt)
+            w32 = wire.float()
+            a_pre = (gamma[:, None, None] * (
+                eta_v - torch.diag_embed(eta_v.sum(dim=-1)))).contiguous()
+
+            def run(eta=eta, master=master, wire=wire, gamma=gamma):
+                return cm.flat_mix(eta, master, wire, gamma)
+
+            def plain(eta=eta, master=master, wire=wire, gamma=gamma):
+                return ref.flat_mix(eta, master, wire, gamma)
+
+            def one(i, eta=eta, master=master, wire=wire, gamma=gamma,
+                    shared=shared):
+                return cm.flat_mix(eta if shared else eta[i], master[i],
+                                   wire[i], gamma[i:i + 1])
+
+            def lib(master=master, a_pre=a_pre, w32=w32):
+                return torch.baddbmm(master, a_pre, w32)
+
+            nbytes = (4 * eta.numel() + v * (8 + wire.element_size()) * k * P
+                      + 4 * v)
+            ops = v * (2 * k * k * P + 4 * k * P)
+            shape = f"V={v} K={k} P={P} wire={str(wdt)[6:]}"
+            library = "torch.baddbmm(master, gamma (eta - diag rowsum), wire)"
+        else:
+            def run(eta=eta, master=master):
+                return cm.flat_consensus(eta, master)
+
+            def plain(eta=eta, master=master):
+                return ref.flat_consensus(eta, master)
+
+            def one(i, eta=eta, master=master):
+                return cm.flat_consensus(eta[i], master[i])
+
+            def lib(eta=eta, master=master):
+                return torch.matmul(eta, master)
+
+            nbytes = 4 * eta.numel() + 8 * v * k * P
+            ops = v * 2 * k * k * P
+            shape = f"V={v} K={k} P={P}"
+            library = "torch.matmul (V, K, K) @ (V, K, P)"
+        shape += " eta " + ("shared (stride 0)" if shared
+                            else "a variant (stride K*K)")
+        out, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        if not torch.allclose(out, want, rtol=RTOL, atol=ATOL):
+            fail(f"{name} {shape} disagrees with its plain version: max "
+                 f"|diff| {err:.3e}")
+        for i in range(v):
+            single = one(i)
+            torch.cuda.synchronize()
+            if not torch.equal(out[i], single):
+                fail(f"{name} {shape}: variant {i} differs from its V = 1 "
+                     f"launch in {(out[i] != single).sum().item()} places")
+        loop_ms, loop_graph_ms = timing(lambda v=v, one=one: [
+            one(i) for i in range(v)])
+        record(name, shape, err, run, plain, lib, nbytes, ops, F32_OPS_PER_S,
+               extra={"variants": v, "loop_ms": loop_ms,
+                      "loop_graph_ms": loop_graph_ms, "library": library})
+    print(f"check variant axis: B1 (f32 shared eta, bf16 an eta a variant) "
+          f"and B2 within rtol={RTOL} atol={ATOL} of their plain versions, "
+          f"every variant bit for bit its V = 1 launch", flush=True)
+
+
+def batched_sweeps(dev, add, expect_counts, dense_only, fleet, fleet_feds,
+                   loss, train, data_by_k) -> None:
+    """Batched fleet sweeps (``SweepAxes``, ``compile_batch``,
+    ``BatchedSession``, ``Trainer.run_rounds_batch``): the paper's mobility
+    sweep (benchmarks/paper_tables.py:185-240) and rounds to 80% over 4
+    seeds for the MLP and the VGG, cdfl and cfa, 60 rounds each; the K=1024
+    sparse Manhattan fleet over 4 seeds (B6 on the (4096, P) rows), the
+    K=256 bf16 ring over gamma x seeds (B1 with an eta a variant) and the
+    crashed K=256 ring over 2 seeds (B2 through the `sent` branch). Each
+    sweep: 2 variants against their single Sessions on the card (within
+    SWEEP_TOL of max |param|), the batched run on the card against the
+    batched run on the CPU (K=64 for the fleets, within 1e-4); the fleets
+    and the K=4 MLP: ms/round of the batch against the loop of its V
+    single runs in turns (ABBA, one call), and one profiled batched round.
+    Then the training CLI's ``--sweep`` on the card."""
+    from repro_torch import experiment
+    from repro_torch.configs.base import FaultConfig, FedConfig
+    from repro_torch.configs.base import MobilityConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.core import cdfl, flatten
+    from repro_torch.core.cdfl import round_slice
+    from repro_torch.launch import train as train_cli
+    from repro_torch.mobility import mixing as mob_mixing
+    from repro_torch.models import simple
+
+    def make(fed, train_cfg, tloss, init, device=None):
+        def build(var=None, swept=(), device=device):
+            f, t = fed, train_cfg
+            if var is not None and "gamma" in swept:
+                f = dataclasses.replace(f, gamma=var["gamma"])
+            if var is not None and "mobility" in swept:
+                f = dataclasses.replace(f, mobility=var["mobility"])
+            if var is not None and "lr" in swept:
+                t = dataclasses.replace(t, learning_rate=var["lr"])
+            return experiment.Experiment.from_parts(tloss, init, fed=f,
+                                                    train=t, device=device)
+        return build
+
+    def swept(axes):
+        return tuple(n for n in ("seeds", "lr", "gamma", "mobility")
+                     if getattr(axes, n) is not None)
+
+    def check_variants(label, build, data, items, axes, compile_kw,
+                       expect, rounds=SWEEP_CHECK_ROUNDS, gated=True):
+        """run_batch on the card (the path: counts zeroed before, read
+        after) and 2 variants against their single Sessions: params within
+        SWEEP_TOL of max |param|, metrics within rtol 1e-4 / atol 1e-5
+        (``gated`` False: the params' difference is reported only)."""
+        reset_counts()
+        bs = build().compile_batch(data, items, axes, **compile_kw)
+        res = bs.run_batch(rounds)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"sweep {label}", counts, expect)
+        add(counts)
+        worst = 0.0
+        v = res.num_variants
+        for i in (0, v - 1):
+            var = res.variants[i]
+            kw = dict(compile_kw)
+            if var["seed"] is not None:
+                kw.update(rng=var["seed"], sample_rng=var["seed"] + 1)
+            single = build(var, swept(axes)).compile(data, items, **kw).run(
+                rounds)
+            want = single.state.buf
+            worst = max(worst, ((res.state.buf[i] - want).abs().max()
+                                / want.abs().max()).item())
+            for name, series in single.metrics.items():
+                if gated and not torch.allclose(res.metrics[name][i], series,
+                                                rtol=1e-4, atol=1e-5):
+                    fail(f"sweep {label}: variant {i}'s {name} differs from "
+                         f"its single Session's")
+        if gated and not worst <= SWEEP_TOL:
+            fail(f"sweep {label}: a variant differs from its single Session "
+                 f"by {worst:.3e} of max |param| > {SWEEP_TOL}")
+        return res, counts, worst
+
+    def check_step(label, build, data, items, axes, compile_kw):
+        """One local step's per-node losses and flat gradient of the V
+        variants as V·K node rows (what the batched forward and backward
+        compute) against each variant's K rows alone, from the batch's
+        initial params and round 0's first batch: max |diff| / max |value|
+        <= SWEEP_TOL."""
+        exp = build()
+        bs = exp.compile_batch(data, items, axes, **compile_kw)
+        v, k, p = bs.states.buf.shape
+        sel = bs.batch_indices(0, 1)[:, 0, :, 0].to(dev)     # (V, K, B)
+        node = torch.arange(k, device=dev)[:, None]
+
+        def step(buf, sel):
+            buf = buf.reshape(-1, p).detach().requires_grad_(True)
+            batch = {n: x[node, sel].flatten(0, sel.dim() - 2)
+                     for n, x in bs.data.items()}
+            losses = exp.loss_fn(flatten.unflatten(buf, bs.states.layout),
+                                 batch)
+            (grad,) = torch.autograd.grad(losses.sum(), buf)
+            return losses.detach(), grad
+
+        losses, grad = step(bs.states.buf, sel)
+        one = [step(bs.states.buf[i], sel[i]) for i in range(v)]
+        want_l = torch.cat([o[0] for o in one])
+        want_g = torch.cat([o[1] for o in one])
+        errs = (rel_diff(losses, want_l), rel_diff(grad, want_g))
+        if not max(errs) <= SWEEP_TOL:
+            fail(f"sweep {label}: one step of {v * k} node rows differs from "
+                 f"its variants' steps alone: losses {errs[0]:.3e}, gradient "
+                 f"{errs[1]:.3e} of max |value| > {SWEEP_TOL}")
+        return errs
+
+    def check_cpu(label, build, data, items, axes, compile_kw):
+        """The batched run on the card against the batched run on the CPU,
+        3 rounds, within 1e-4."""
+        runs = [build(device=d).compile_batch(data, items, axes,
+                                              **compile_kw).run_batch(3)
+                for d in (None, "cpu")]
+        diff = (runs[0].state.buf.cpu() - runs[1].state.buf).abs().max()
+        if not diff.item() <= 1e-4:
+            fail(f"sweep {label}: the card's batched run differs from the "
+                 f"CPU's by {diff.item():.3e} > 1e-4")
+        return diff.item()
+
+    def paired(label, tr, stacked, data_dev, etas, gammas, shared, idx,
+               n_items=None):
+        """ms/round of the batch (run_rounds_batch) against the loop of
+        its V single runs (run_rounds), on the same stacks and indices
+        keyed on the absolute round, in turns batch, loop, loop, batch;
+        then one batched round under the profiler."""
+        v = stacked.buf.shape[0]
+        box = [stacked]
+        singles = [cdfl.select_state(stacked, i) for i in range(v)]
+
+        def batched(n):
+            r = int(box[0].round[0])
+            sl = slice(r, r + n)
+            box[0], _ = tr.run_rounds_batch(
+                box[0], data_dev, n, idx=idx[:, sl], n_items=n_items,
+                eta_stacks=round_slice(etas, sl if shared
+                                       else (slice(None), sl)),
+                gamma_stacks=gammas[:, sl])
+
+        def loop(n):
+            for i in range(v):
+                r = singles[i].round
+                sl = slice(r, r + n)
+                singles[i], _ = tr.run_rounds(
+                    singles[i], data_dev, n, idx=idx[i, sl], n_items=n_items,
+                    eta_stack=round_slice(etas, sl if shared else (i, sl)),
+                    gamma_stack=gammas[i, sl])
+
+        batched(1)
+        loop(1)                                  # warm-up rounds
+        b_ms, l_ms, b_all, l_all = paired_ms(batched, loop, SWEEP_BLOCKS,
+                                             SWEEP_TURN)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            batched(1)
+            torch.cuda.synchronize()
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        busy, n_dev = device_profile(prof)
+        busy_ms = sum(busy.values())
+        if busy_ms <= 0:
+            fail(f"profile sweep {label}: the batched round shows no device "
+                 f"time")
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        print(f"paired sweep {label} V={v} ms/round (turns batch, loop, "
+              f"loop, batch, {SWEEP_BLOCKS}x, {SWEEP_TURN} rounds a turn): "
+              f"batch={b_ms:.3f} loop of {v} runs={l_ms:.3f} "
+              f"speedup={l_ms / b_ms:.2f}x turns batch="
+              f"{[round(t, 3) for t in b_all]} loop="
+              f"{[round(t, 3) for t in l_all]}", flush=True)
+        print(f"profile sweep {label} batched round: wall_ms={prof_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} busy_share="
+              f"{busy_ms / prof_ms:.4f} device_events={n_dev} top="
+              f"{[(n, round(t, 4)) for n, t in top]}", flush=True)
+
+    t_phase = time.perf_counter()
+    # -- 13a. the paper's mobility sweep (paper_tables.mobility_sweep) ----
+    # MLP 784-30-10, K=4, the four scenarios, 60 rounds, one compile_batch
+    # over the mobility axis per algorithm, compile(rng=0, sample_rng=0)
+    scens = list(MOBILITY_SCENARIOS)
+    mob_axis = [None if m is None else MobilityConfig(**m)
+                for m in MOBILITY_SCENARIOS.values()]
+    for alg in ("cdfl", "cfa"):
+        (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
+         n_items) = table_setup("mlp", alg)
+        build = make(FedConfig(num_nodes=4, local_steps=steps,
+                               algorithm=alg), train_cfg, tloss, init)
+        axes = experiment.SweepAxes(mobility=mob_axis)
+        kw = dict(rng=0, sample_rng=0, n_items=n_items)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = build().compile_batch(data, raw_items, axes, **kw).run_batch(
+            TABLE_ROUNDS, callbacks=[experiment.EvalCallback(eval_fn(dev))])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(f"sweep mobility {alg}", counts, {
+            "flat_mix": TABLE_ROUNDS, "flat_mix_variants": TABLE_ROUNDS,
+            "flat_consensus": 0, "cnd_bitmaps": 1, "cnd_popcount": 1,
+            **dense_only})
+        add(counts)
+        acc = res.metrics["eval"].cpu().numpy()            # (V, R, K)
+        for i, scen in enumerate(scens):
+            to_80, reached = rounds_to_80(acc[i])
+            print(f"sweep mobility mlp {alg} {scen}: rounds_to_80/node="
+                  f"{to_80.tolist()} mean={float(np.mean(to_80)):.2f} "
+                  f"reached={reached.tolist()} final_acc/node="
+                  f"{[round(float(a), 4) for a in acc[i, -1]]}", flush=True)
+        _, _, worst = check_variants(f"mobility {alg}", build, data,
+                                     raw_items, axes, kw, {
+                                         "flat_mix": SWEEP_CHECK_ROUNDS})
+        print(f"path sweep mobility mlp {alg}: V={len(scens)} K=4 "
+              f"R={TABLE_ROUNDS} wall_s={wall:.2f} ms/round="
+              f"{1e3 * wall / TABLE_ROUNDS:.3f} launches={counts} variants "
+              f"0 and 3 against their single Sessions over "
+              f"{SWEEP_CHECK_ROUNDS} rounds max|diff|/max|param|="
+              f"{worst:.3e} (<= {SWEEP_TOL})", flush=True)
+
+    # -- 13b. rounds to 80% over 4 seeds: MLP and VGG, cdfl and cfa -------
+    for model in ("mlp", "vgg"):
+        for alg in ("cdfl", "cfa"):
+            (tloss, init, eval_fn, train_cfg, steps, raw_items, data,
+             n_items) = table_setup(model, alg)
+            build = make(FedConfig(num_nodes=4, local_steps=steps,
+                                   algorithm=alg), train_cfg, tloss, init)
+            axes = experiment.SweepAxes(seeds=SWEEP_SEEDS)
+            kw = dict(n_items=n_items)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = build().compile_batch(data, raw_items, axes,
+                                        **kw).run_batch(
+                TABLE_ROUNDS,
+                callbacks=[experiment.EvalCallback(eval_fn(dev))])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            expect_counts(f"sweep seeds {model} {alg}", counts, {
+                "flat_mix": TABLE_ROUNDS, "flat_mix_variants": TABLE_ROUNDS,
+                "flat_consensus": 0, "cnd_bitmaps": SWEEP_SEEDS,
+                "cnd_popcount": SWEEP_SEEDS, **dense_only})
+            add(counts)
+            acc = res.metrics["eval"].cpu().numpy()        # (V, R, K)
+            per_seed = [float(np.mean(rounds_to_80(acc[i])[0]))
+                        for i in range(SWEEP_SEEDS)]
+            # the VGG's ReLU gates flip on f32 rounding within a round
+            # (ROADMAP C): its variants are gated one step at a time, and
+            # their drift from the single Sessions is reported
+            vgg = model == "vgg"
+            _, _, worst = check_variants(
+                f"seeds {model} {alg}", build, data, raw_items, axes, kw,
+                {"flat_mix": SWEEP_CHECK_ROUNDS}, gated=not vgg)
+            step_errs = (check_step(f"seeds {model} {alg}", build, data,
+                                    raw_items, axes, kw) if vgg else None)
+            print(f"sweep seeds {model} {alg}: rounds_to_80 mean over "
+                  f"stations per seed={per_seed} mean={np.mean(per_seed):.2f}"
+                  f" std={np.std(per_seed):.2f} min={min(per_seed):.2f} "
+                  f"max={max(per_seed):.2f} final_acc mean per seed="
+                  f"{[round(float(a), 4) for a in acc[:, -1].mean(axis=-1)]} "
+                  f"wall_s={wall:.2f} ms/round={1e3 * wall / TABLE_ROUNDS:.3f}"
+                  f" launches={counts} seeds 0 and 3 against their single "
+                  f"Sessions over {SWEEP_CHECK_ROUNDS} rounds "
+                  f"max|diff|/max|param|={worst:.3e} "
+                  + (f"(reported; one step of the {SWEEP_SEEDS * 4} node "
+                     f"rows against each seed's 4: losses "
+                     f"{step_errs[0]:.3e} gradient {step_errs[1]:.3e} <= "
+                     f"{SWEEP_TOL})" if vgg else f"(<= {SWEEP_TOL})"),
+                  flush=True)
+            if model == "mlp" and alg == "cdfl":
+                diff = check_cpu("seeds mlp cdfl", build, data, raw_items,
+                                 axes, kw)
+                print(f"check sweep seeds mlp cdfl 3 rounds card-vs-cpu "
+                      f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+                # the K=4 MLP's batch against its loop of 4 runs
+                bs = build().compile_batch(data, raw_items, axes, **kw)
+                tr = build().trainer(bs.data)
+                etas, gammas = tr.mixing_stack(
+                    cdfl.select_state(bs.states, 0), 40)
+                paired("mlp K=4 seeds", tr, bs.states, bs.data, etas,
+                       gammas.expand(SWEEP_SEEDS, 40), True,
+                       bs.batch_indices(0, 40), n_items=n_items)
+
+    # -- 13c. the fleets ---------------------------------------------------
+    fleet_cases = [
+        # label, FedConfig, axes, data key, expected exchange launches a
+        # round (kernel, variant-axis name or None)
+        (f"fleet sparse K={FLEET_K} Manhattan bf16", fleet_feds["sparse"],
+         experiment.SweepAxes(seeds=SWEEP_SEEDS), FLEET_K,
+         ("cluster_mix", None)),
+        (f"ring K={SWEEP_RING_K} bf16 gamma x seeds", FedConfig(
+            num_nodes=SWEEP_RING_K, topology="ring", gamma=0.5,
+            local_steps=10, wire_dtype="bf16"),
+         experiment.SweepAxes(seeds=2, gamma=[0.5, 0.8]), SWEEP_RING_K,
+         ("flat_mix", "flat_mix_variants")),
+        (f"ring K={SWEEP_RING_K} crash", FedConfig(
+            num_nodes=SWEEP_RING_K, topology="ring", gamma=0.5,
+            local_steps=10, faults=FaultConfig(**SWEEP_CRASH)),
+         experiment.SweepAxes(seeds=2), SWEEP_RING_K,
+         ("flat_consensus", "flat_consensus_variants"))]
+    def p_init(gen):
+        return simple.mlp_init(gen, MLP_CONFIG, device="cpu")
+
+    for label, fed, axes, k, (kernel, variant_name) in fleet_cases:
+        data, items = data_by_k[k]
+        build = make(fed, train, loss, p_init)
+        expect = {kernel: SWEEP_CHECK_ROUNDS,
+                  "cnd_bitmaps": len(axes.seed_list()),
+                  "cnd_popcount": len(axes.seed_list())}
+        if variant_name:
+            expect[variant_name] = SWEEP_CHECK_ROUNDS
+        for other in ("flat_mix", "flat_consensus", "sparse_mix",
+                      "cluster_mix", "robust_agg"):
+            expect.setdefault(other, 0)
+        res, counts, worst = check_variants(label, build, data, items, axes,
+                                            {}, expect)
+        health = ""
+        if "health" in res.metrics:
+            health = (f" crashed node-rounds="
+                      f"{int((res.metrics['health'] == 0).sum().item())}")
+        loss_rounds = res.metrics["loss"].mean(dim=-1).tolist()
+        print(f"path sweep {label}: V={res.num_variants} "
+              f"R={SWEEP_CHECK_ROUNDS} loss/round per variant="
+              f"{[[round(x, 4) for x in r] for r in loss_rounds]}"
+              f"{health} launches={counts} variants 0 and "
+              f"{res.num_variants - 1} against their single Sessions "
+              f"max|diff|/max|param|={worst:.3e} (<= {SWEEP_TOL})",
+              flush=True)
+        # at K=64 with the f32 wire, as the fleets' own checks (a bf16
+        # wire drifts by whole bf16 steps between summation orders)
+        data64, items64 = data_by_k[64]
+        small = make(dataclasses.replace(fed, num_nodes=64,
+                                         wire_dtype="f32"), train, loss,
+                     p_init)
+        diff = check_cpu(label + " K=64", small, data64, items64, axes, {})
+        print(f"check sweep {label} at K=64 wire=f32 3 rounds card-vs-cpu "
+              f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
+        # the batch against its loop, on stacks built once for the horizon
+        bs = build().compile_batch(data, items, axes)
+        tr = build().trainer(bs.data)
+        state0 = cdfl.select_state(bs.states, 0)
+        horizon = FLEET_ROUNDS
+        if kernel == "cluster_mix":
+            etas, gammas, shared = fleet["sparse"][1], fleet["sparse"][2], True
+        elif axes.gamma is not None:
+            stacks = [tr.mixing_stack(state0, horizon, gamma_cap=v["gamma"])
+                      for v in bs.variants]
+            etas = mob_mixing.stack_variant_stacks([e for e, _ in stacks])
+            gammas = torch.stack([g for _, g in stacks])
+            shared = False
+        else:
+            etas, gammas = tr.mixing_stack(state0, horizon)
+            shared = True
+        if shared:
+            gammas = gammas.expand(bs.num_variants, horizon)
+        paired(label, tr, bs.states, bs.data, etas, gammas, shared,
+               bs.batch_indices(0, horizon))
+        del bs, tr, etas, gammas
+        torch.cuda.empty_cache()
+
+    # -- 13d. the training CLI's --sweep on the card ----------------------
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        state, losses = train_cli.main(["--quick", "--rounds",
+                                        str(CLI_ROUNDS), "--sweep",
+                                        "seeds=2,lr=1e-3:3e-3"])
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    counts = read_counts()
+    # one B9 launch a layer, node row and local step: 4 variants x 4 nodes
+    expect_counts("train cli --sweep", counts, {
+        "flat_mix": CLI_ROUNDS, "flat_mix_variants": CLI_ROUNDS,
+        "cnd_bitmaps": 2, "cnd_popcount": 2,
+        "flash_attention": CLI_ROUNDS * 4 * 16 * 2})
+    add(counts)
+    verdict = [ln for ln in lines if ln.startswith("SWEEP_SMOKE")]
+    if len(verdict) != 1 or not verdict[0].startswith("SWEEP_SMOKE ok "):
+        fail(f"train cli --sweep: no 'SWEEP_SMOKE ok' line: {lines[-8:]}")
+    table = [ln for ln in lines if ln.startswith("sweep:") or
+             ln.lstrip().startswith(("variant", "0 ", "1 ", "2 ", "3 "))]
+    print(f"path train cli --sweep seeds=2,lr=1e-3:3e-3: {table} "
+          f"losses (V, R, K)={tuple(losses.shape)} launches={counts} "
+          f"{verdict[0]}", flush=True)
+    print(f"phase batched sweeps {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
 
 
 def llm_training(dev, add, expect_counts) -> None:
@@ -2082,6 +2603,7 @@ def main() -> None:
           f"worst max|diff|={worst:.3e} within rtol={RTOL} atol={ATOL}",
           flush=True)
     del master, wire16
+    variant_kernel_rows(dev, gen, record)
 
     for items_np in (items4, items256):
         items = torch.as_tensor(items_np, device=dev).contiguous()
@@ -3166,6 +3688,10 @@ def main() -> None:
               f"max|param diff|={diff:.3e} (<= 1e-4)", flush=True)
 
     paper_tables(dev, add, expect_counts, dense_only)
+    batched_sweeps(dev, add, expect_counts, dense_only, fleet, fleet_feds,
+                   loss, train, {FLEET_K: (data1024, items1024),
+                                 SWEEP_RING_K: (data256, items256),
+                                 64: (data64, items64)})
 
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
     rwkv_serving(dev, rows, record, add, expect_counts)
@@ -3176,6 +3702,14 @@ def main() -> None:
                             "src/repro/kernels/consensus_mix.py:77"),
                "flat_consensus": ("src/repro_torch/csrc/consensus_mix.cu",
                                   "src/repro/kernels/consensus_mix.py:109"),
+               # B1 and B2 with a variant axis: the Pallas kernels under
+               # jax.vmap (src/repro/core/cdfl.py:917-931)
+               "flat_mix_variants": (
+                   "src/repro_torch/csrc/consensus_mix.cu",
+                   "src/repro/kernels/consensus_mix.py:77"),
+               "flat_consensus_variants": (
+                   "src/repro_torch/csrc/consensus_mix.cu",
+                   "src/repro/kernels/consensus_mix.py:109"),
                "consensus_mix": ("src/repro_torch/csrc/consensus_mix.cu",
                                  "src/repro/kernels/consensus_mix.py:133"),
                "cnd_bitmaps": ("src/repro_torch/csrc/cnd_sketch.cu",
@@ -3207,7 +3741,8 @@ def main() -> None:
                       **{key: row[key] for key in (
                           "bytes_once", "bytes_gather", "library", "flop",
                           "rows_per_tile", "gathers_per_tile",
-                          "plan_build_s") if key in row}})
+                          "plan_build_s", "variants", "loop_ms",
+                          "loop_graph_ms") if key in row}})
         if name == "flash_attention":    # the path's launches by dtype
             table[-1].update({f"launches_{dt}": totals[f"flash_attention_{dt}"]
                               for dt in B9_SPLIT})

@@ -42,6 +42,15 @@ coordinate-wise trimmed mean or median over the neighbor payloads (kernel
 B7). A round's fault handling gates on device tensors, never on a host
 read.
 
+``Trainer.run_rounds_batch`` runs V whole runs at once (the batched fleet
+sweeps): a ``(V,)``-stacked state (:func:`stack_states`), the datasets
+shared, per-variant batch indices, mixing stacks, step sizes and learning
+rates. The V variants' ``(K, P)`` buffers and Adam moments form one ``(V·K,
+P)`` buffer, so the forward, the backward and Adam run over V·K node rows in
+the launches of one run, and each exchange is one launch for all V: B1 or
+B2 with a variant axis (dense), B6 on the ``(V·K, P)`` rows (sparse). B7,
+which has no variant axis, runs once a variant.
+
 ``build_trainer`` refuses what the port does not run yet (see
 :data:`repro_torch.registry.NOT_PORTED`).
 """
@@ -92,6 +101,44 @@ class Trainer(NamedTuple):
     # (state, R, start) -> per-round (etas, (R,) gammas): dense (R, K, K),
     # SparseEta (R, K, D) or HierEta stacks
     mixing_stack: Callable
+    # (states, data, R) -> (states, metrics): V whole runs of a (V,)-stacked
+    # state, every metric with a leading (V,) axis
+    run_rounds_batch: Callable
+
+
+def stack_states(states) -> FedState:
+    """V single-run states of one trainer -> the ``(V,)``-stacked state
+    :func:`Trainer.run_rounds_batch` takes: every tensor gains a leading
+    variant axis (copied), the round counter becomes a ``(V,)`` int64 CPU
+    tensor."""
+    states = list(states)
+    first = states[0]
+    if any(len(s.tstate) for s in states):
+        raise ValueError("stateful transports are not ported yet")
+
+    def stack(tensors):
+        return torch.stack(list(tensors))
+
+    fstate = (stack(s.fstate for s in states)
+              if isinstance(first.fstate, torch.Tensor) else ())
+    return FedState(
+        stack(s.buf for s in states), first.layout,
+        FlatAdamState(*(stack(f) for f in zip(*(s.opt for s in states)))),
+        stack(s.ratios for s in states), stack(s.sizes for s in states),
+        torch.tensor([int(s.round) for s in states], dtype=torch.int64),
+        (), fstate)
+
+
+def select_state(states: FedState, i: int) -> FedState:
+    """Variant ``i`` of a ``(V,)``-stacked state, as a single-run state
+    (views of the stacked tensors)."""
+    fstate = (states.fstate[i] if isinstance(states.fstate, torch.Tensor)
+              else states.fstate)
+    return FedState(states.buf[i], states.layout,
+                    FlatAdamState(*(f[i] for f in states.opt)),
+                    states.ratios[i], states.sizes[i],
+                    int(torch.as_tensor(states.round)[i]), states.tstate,
+                    fstate)
 
 
 def round_slice(stack, r):
@@ -140,10 +187,11 @@ def _refuse_unported(fed: FedConfig) -> None:
 
 
 def _freeze_rows(new, old, keep: torch.Tensor):
-    """Per-node ``where`` over a tuple of tensors whose leading axis is the
-    node: rows with ``keep`` False take their round-entry values."""
+    """Per-node ``where`` over a tuple of tensors whose leading axes are
+    those of ``keep`` (the node, or variant and node): rows with ``keep``
+    False take their round-entry values."""
     return type(new)(*(
-        torch.where(keep.reshape((keep.shape[0],) + (1,) * (n.dim() - 1)),
+        torch.where(keep.reshape(keep.shape + (1,) * (n.dim() - keep.dim())),
                     n, o) for n, o in zip(new, old)))
 
 
@@ -259,34 +307,47 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         ``SparseEta``, or a ``HierEta``."""
         return mixing(state)[0]
 
-    def mixing(state: FedState):
-        """The static graph's weights in the config's format, and gamma."""
+    def mixing(state: FedState, cap: Optional[float] = None):
+        """The static graph's weights in the config's format, and gamma
+        under the step-size cap ``cap`` (default the config's)."""
+        cap = fed.gamma if cap is None else cap
         if hier_cfg is not None:
             return hier_lib.hier_static_stacks(
                 adj_np, rule=hier_rule, ratios=state.ratios,
-                sizes=state.sizes, gamma_cap=fed.gamma,
+                sizes=state.sizes, gamma_cap=cap,
                 max_cluster_size=hier_cfg.max_cluster_size,
                 leader_policy=hier_cfg.leader_policy,
                 inter_degree=hier_cfg.inter_degree,
                 hysteresis=hier_cfg.hysteresis)
         eta = topology.mixing_weights(adj, spec.mixing, ratios=state.ratios,
                                       sizes=state.sizes)
-        gamma = topology.stable_gamma(eta, fed.gamma)
+        gamma = topology.stable_gamma(eta, cap)
         if sparse_fmt:
             # sparsify AFTER the stability bound: the top-D renorm keeps
             # the row sums, so the dense bound is the sparse one's
             return topology.sparsify_eta(eta, fed.degree), gamma
         return eta, gamma
 
-    def mixing_stack(state: FedState, num_rounds: int, start: int = 0):
+    def mixing_stack(state: FedState, num_rounds: int, start: int = 0, *,
+                     mobility="config", gamma_cap: Optional[float] = None):
         """Per-round weights for rounds ``[start, start + num_rounds)``:
         dense ``(R, K, K)`` eta, a ``SparseEta`` with ``(R, K, D)`` stacks
         or a ``HierEta``, and ``(R,)`` gamma. The static graph is
         broadcast; a mobility scenario re-derives the radio-range graph
         every round from the trace generated from round 0. Host work
-        (traces, links, clusters) happens here, once per call."""
-        if mob is None:
-            eta, gamma = mixing(state)
+        (traces, links, clusters) happens here, once per call.
+
+        ``mobility`` / ``gamma_cap`` override the config's scenario and
+        step-size cap for THIS stack only, as batched sweeps build
+        per-variant stacks against one shared trainer (the sentinel
+        ``"config"`` keeps ``fed.mobility``; ``None`` forces the static
+        graph)."""
+        m = mob if mobility == "config" else mobility
+        if m is not None and m.kind == "static":
+            m = None
+        cap = fed.gamma if gamma_cap is None else float(gamma_cap)
+        if m is None:
+            eta, gamma = mixing(state, cap)
             if hier_cfg is not None:
                 return hier_lib.constant_hier_stacks(eta, gamma, num_rounds)
             if sparse_fmt:
@@ -296,18 +357,17 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         side = dict(ratios=state.ratios, sizes=state.sizes, start=start)
         if hier_cfg is not None:
             return hier_lib.hier_scenario_stacks(
-                mob, num_rounds, k, rule=hier_rule, gamma_cap=fed.gamma,
+                m, num_rounds, k, rule=hier_rule, gamma_cap=cap,
                 max_cluster_size=hier_cfg.max_cluster_size,
                 leader_policy=hier_cfg.leader_policy,
                 inter_degree=hier_cfg.inter_degree,
                 hysteresis=hier_cfg.hysteresis, **side)
         if sparse_fmt:
             return mobility_lib.sparse_scenario_stacks(
-                mob, num_rounds, k, rule=spec.mixing, gamma_cap=fed.gamma,
+                m, num_rounds, k, rule=spec.mixing, gamma_cap=cap,
                 degree=fed.degree, **side)
         return mobility_lib.scenario_stacks(
-            mob, num_rounds, k, rule=spec.mixing, gamma_cap=fed.gamma,
-            **side)
+            m, num_rounds, k, rule=spec.mixing, gamma_cap=cap, **side)
 
     def explicit_stacks(eta_stack, gamma_stack):
         """A caller's per-round stacks on the device, with gammas derived
@@ -390,19 +450,20 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
     def mix_buf(buf, sizes, eta, gamma, layout, tstate, rnd, sent=None):
         """The round's exchange. ``sent`` (fault injection) overrides the
         per-node wire payloads; ``None`` means every node broadcasts its
-        clean buffer."""
+        clean buffer. A ``(V, K, P)`` buffer (``sizes`` (V, K), ``gamma``
+        (V,)) exchanges V variants at once."""
         if fedavg:
             # server average with weights E_i / sum E
-            w = sizes / sizes.sum()
-            a = w[None, :].expand(k, k).contiguous()
+            w = sizes / sizes.sum(dim=-1, keepdim=True)
+            a = w[..., None, :].expand(w.shape[:-1] + (k, k)).contiguous()
             return flatten.apply_matrix_flat(buf, a), tstate
         if cdfa_m:
             # C-DFA(M): only the leaf-prefix columns travel the wire (with
             # the codec); the strided prefix is copied once for the kernel
             prefix = flatten.prefix_length(layout, fed.cdfa_fraction)
-            head, tstate = transport.exchange(buf[:, :prefix].contiguous(),
-                                              eta, gamma, tstate, rnd)
-            return torch.cat([head, buf[:, prefix:]], dim=1), tstate
+            head, tstate = transport.exchange(
+                buf[..., :prefix].contiguous(), eta, gamma, tstate, rnd)
+            return torch.cat([head, buf[..., prefix:]], dim=-1), tstate
         if hier_cfg is not None:
             # two-tier cluster consensus: the intra tier's neighbor terms
             # read the (possibly fault-overridden) wire payloads, its self
@@ -421,6 +482,12 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             # (codec'd like any wire traffic) instead of eq. 5
             payload = transport.codec.roundtrip(buf if sent is None
                                                 else sent)
+            if buf.dim() == 3:
+                # B7 has no variant axis: one launch a variant, on its rows
+                return torch.stack([
+                    robust_fn(buf[i], payload[i],
+                              eta if eta.dim() == 2 else eta[i], gamma[i])
+                    for i in range(buf.shape[0])]), tstate
             return robust_fn(buf, payload, eta, gamma), tstate
         return transport.exchange(buf, eta, gamma, tstate, rnd, sent=sent)
 
@@ -430,42 +497,51 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         times a round, which is the catch-up."""
         if hier_cfg is not None:
             return hier_lib.hier_mix_flat(buf, eta, gamma, burst_passes=0)
+        if sparse_fmt and buf.dim() == 3:
+            return flatten.sparse_mix_variants(buf, eta.idx, eta.val, gamma)
         if sparse_fmt:
             return flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma)
         return flatten.mix_flat(buf, eta, gamma)
 
-    def local_steps(carry, layout, batch_at, n_steps, eta=None,
-                    gamma=None):
+    def local_steps(carry, layout, batch_at, n_steps, mix=None, adam=fopt):
         """``n_steps`` Adam steps of every node on the batches
         ``batch_at(s)`` (leaves (K, B, ...)), from ``carry = [buf, opt]``,
         which is emptied: the caller keeps no reference, so each step's
-        new buffers replace the last ones in memory. For dpsgd (``eta``
-        given) each step first gossips the buffer, and the loss is the
-        mean over nodes and steps, broadcast to every node."""
+        new buffers replace the last ones in memory. For dpsgd (``mix``
+        given) each step first gossips the buffer through ``mix``, and the
+        loss is the mean over nodes and steps, broadcast to every node.
+
+        A ``(V, K, P)`` buffer of V variants runs as ``(V·K, P)`` node
+        rows through the forward and backward (batch leaves ``(V·K, B,
+        ...)``); ``adam`` may carry per-variant learning rates."""
         buf, opt = carry
         carry.clear()
-        loss_sum = torch.zeros(k, dtype=torch.float32, device=dev)
+        loss_sum = torch.zeros(buf.shape[:-1], dtype=torch.float32,
+                               device=dev)
         for s in range(n_steps):
-            if eta is not None:
-                buf = gossip(buf, eta, gamma)
+            if mix is not None:
+                buf = mix(buf)
             batch = batch_at(s)
-            p = buf.detach().requires_grad_(True)
+            p = buf.reshape(-1, buf.shape[-1]).detach().requires_grad_(True)
             with torch.enable_grad():
                 losses = loss_fn(flatten.unflatten(p, layout), batch)
                 (grad,) = torch.autograd.grad(losses.sum(), p)
             with torch.no_grad():
-                buf, opt = fopt.update(grad, opt, buf)
-            loss_sum += losses.detach()
+                buf, opt = adam.update(grad.view(buf.shape), opt, buf)
+            loss_sum += losses.detach().view(loss_sum.shape)
         loss = loss_sum / n_steps
-        if eta is not None:
-            loss = loss.mean().expand(k)
+        if mix is not None:
+            loss = loss.mean(dim=-1, keepdim=True).expand(loss.shape)
         return buf, opt, loss
 
     def gathered(data, idx_r):
         """``batch_at`` of one round's (K, S, B) indices into the resident
-        datasets."""
+        datasets, or of V variants' (V, K, S, B): leaves (K, B, ...) or
+        (V·K, B, ...), row ``v·K + k`` node k's items at variant v's
+        indices."""
         rows = torch.arange(k, device=dev)[:, None]
-        return lambda s: {name: arr[rows, idx_r[:, s]]
+        lead = idx_r.dim() - 3
+        return lambda s: {name: arr[rows, idx_r[..., s, :]].flatten(0, lead)
                           for name, arr in data.items()}
 
     def round_fn(state: FedState, batches: dict):
@@ -498,6 +574,51 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         state, metrics = run_rounds(state, data, 1, idx=idx)
         return state, {name: v[0] for name, v in metrics.items()}
 
+    def item_counts(n_items, max_items: int):
+        """``n_items`` as a checked (K,) int64 CPU tensor, or None."""
+        if n_items is None:
+            return None
+        n_items = torch.as_tensor(n_items).to(torch.int64).cpu()
+        if (tuple(n_items.shape) != (k,) or int(n_items.min()) < 1
+                or int(n_items.max()) > max_items):
+            raise ValueError(
+                f"n_items must be (K={k},) counts in [1, {max_items}], "
+                f"got {n_items.tolist()}")
+        return n_items
+
+    def draw_indices(shape, generator, n_items, max_items: int):
+        """(R, K, S, B) batch indices from ``generator`` (default: a CPU
+        generator seeded with ``train.seed + 1``): uniform over the
+        resident items, or over each node's ``n_items`` as the JAX package
+        draws them (a uniform ``u`` maps to ``min(floor(u * n_k), n_k -
+        1)``)."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(train.seed + 1)
+        if n_items is None:
+            return torch.randint(0, max_items, shape, generator=generator,
+                                 device=generator.device)
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        n = n_items.to(u.device)[:, None, None]
+        return torch.minimum((u * n).to(torch.int64), n - 1)
+
+    def checked_indices(idx, shape, max_items: int, n_items):
+        """A caller's (..., K, S, B) batch indices, checked against
+        ``shape``, the resident items and ``n_items``, on the device."""
+        idx = torch.as_tensor(idx)
+        if tuple(idx.shape) != shape:
+            raise ValueError(f"batch index stack {tuple(idx.shape)} != "
+                             f"{shape}")
+        if int(idx.min()) < 0 or int(idx.max()) >= max_items:
+            raise ValueError(f"batch indices must lie in [0, {max_items})")
+        if n_items is not None:
+            over = idx.cpu() >= n_items[:, None, None]
+            if bool(over.any()):
+                node = int(over.nonzero()[0, -3])
+                raise ValueError(
+                    f"batch indices of node {node} must lie in "
+                    f"[0, {int(n_items[node])}), its item count")
+        return idx.to(device=dev, dtype=torch.int64)
+
     def run_rounds(state: FedState, data: dict, num_rounds: int,
                    idx=None, generator: Optional[torch.Generator] = None,
                    eta_stack=None, gamma_stack=None, n_items=None):
@@ -529,38 +650,10 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 for name, v in data.items()}
         max_items = next(iter(data.values())).shape[1]
         shape = (num_rounds, k, fed.local_steps, train.batch_size)
-        if n_items is not None:
-            n_items = torch.as_tensor(n_items).to(torch.int64).cpu()
-            if (tuple(n_items.shape) != (k,) or int(n_items.min()) < 1
-                    or int(n_items.max()) > max_items):
-                raise ValueError(
-                    f"n_items must be (K={k},) counts in [1, {max_items}], "
-                    f"got {n_items.tolist()}")
+        n_items = item_counts(n_items, max_items)
         if idx is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(train.seed + 1)
-            if n_items is None:
-                idx = torch.randint(0, max_items, shape, generator=generator,
-                                    device=generator.device)
-            else:
-                u = torch.rand(shape, generator=generator,
-                               device=generator.device)
-                n = n_items.to(u.device)[None, :, None, None]
-                idx = torch.minimum((u * n).to(torch.int64), n - 1)
-        idx = torch.as_tensor(idx)
-        if tuple(idx.shape) != shape:
-            raise ValueError(f"batch index stack {tuple(idx.shape)} != "
-                             f"{shape}")
-        if int(idx.min()) < 0 or int(idx.max()) >= max_items:
-            raise ValueError(f"batch indices must lie in [0, {max_items})")
-        if n_items is not None:
-            over = idx.cpu() >= n_items[None, :, None, None]
-            if bool(over.any()):
-                node = int(over.nonzero()[0, 1])
-                raise ValueError(
-                    f"batch indices of node {node} must lie in "
-                    f"[0, {int(n_items[node])}), its item count")
-        idx = idx.to(device=dev, dtype=torch.int64)
+            idx = draw_indices(shape, generator, n_items, max_items)
+        idx = checked_indices(idx, shape, max_items, n_items)
         if eta_stack is None:
             etas, gammas = mixing_stack(state, num_rounds, start=state.round)
             if gamma_stack is not None:
@@ -626,7 +719,8 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 del buf, opt
                 buf, opt, loss = local_steps(
                     carry, state.layout, gathered(data, idx[r]),
-                    fed.local_steps, eta_r, gammas[r])
+                    fed.local_steps,
+                    mix=lambda b: gossip(b, eta_r, gammas[r]))
             else:
                 buf, tstate = mix_buf(buf, state.sizes, eta_r, gammas[r],
                                       state.layout, tstate, state.round + r,
@@ -670,6 +764,245 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                          state.round + num_rounds, tstate, prev)
         return final, metrics
 
+    def variant_indices(rngs, v: int, shape, n_items, max_items: int):
+        """(V, R, K, S, B) batch indices: variant v's drawn as
+        :func:`run_rounds` draws them from ``rngs[v]`` (a generator or a
+        seed); one generator or seed, or None (seed ``train.seed + 1``),
+        draws once for every variant."""
+        def gen(r):
+            if r is None or isinstance(r, torch.Generator):
+                return r
+            return torch.Generator().manual_seed(int(r))
+
+        if rngs is None or isinstance(rngs, (int, torch.Generator)):
+            one = draw_indices(shape, gen(rngs), n_items, max_items)
+            return one.expand((v,) + shape)
+        rngs = list(rngs)
+        if len(rngs) != v:
+            raise ValueError(f"rngs leading dim {len(rngs)} != V={v} "
+                             f"variants")
+        return torch.stack([draw_indices(shape, gen(r), n_items, max_items)
+                            for r in rngs])
+
+    def variant_stacks(states, num_rounds, start, v, eta_stacks,
+                       gamma_stacks):
+        """(etas, (V, R) gammas, shared): the config's own stacks, shared by
+        every variant, or a caller's, shared ``(R, ...)`` or one a variant
+        ``(V, R, ...)``, with the reference's checks."""
+        f32 = dict(dtype=torch.float32, device=dev)
+        if eta_stacks is None:
+            etas, gammas = mixing_stack(select_state(states, 0), num_rounds,
+                                        start=start)
+            shared = True
+        elif isinstance(eta_stacks, topology.SparseEta):
+            if not sparse_fmt:
+                raise ValueError(
+                    "a SparseEta stack needs mixing_format='sparse'")
+            idx = torch.as_tensor(eta_stacks.idx, device=dev).to(torch.int32)
+            _check_indices(idx, k, "sparse eta")
+            etas = topology.SparseEta(idx.contiguous(),
+                                      torch.as_tensor(eta_stacks.val, **f32))
+            shared = etas.idx.dim() == 3
+            d = etas.idx.shape[-1]
+            expect = ((num_rounds, k, d) if shared
+                      else (v, num_rounds, k, d))
+            if (tuple(etas.idx.shape) != expect
+                    or tuple(etas.val.shape) != expect):
+                raise ValueError(
+                    f"sparse eta stacks idx={tuple(etas.idx.shape)} "
+                    f"val={tuple(etas.val.shape)} != {expect}")
+            gammas = gamma_stacks
+            if gammas is None:
+                gammas = (mobility_lib.sparse_gamma_stack(etas, fed.gamma)
+                          if shared else torch.stack([
+                              mobility_lib.sparse_gamma_stack(
+                                  topology.SparseEta(i, x), fed.gamma)
+                              for i, x in zip(etas.idx, etas.val)]))
+        else:
+            etas = torch.as_tensor(eta_stacks, **f32)
+            if sparse_fmt:
+                raise ValueError(
+                    "mixing_format='sparse' needs SparseEta stacks "
+                    f"(got dense array {tuple(etas.shape)})")
+            shared = etas.dim() == 3
+            expect = ((num_rounds, k, k) if shared
+                      else (v, num_rounds, k, k))
+            if tuple(etas.shape) != expect:
+                raise ValueError(f"eta stacks shape {tuple(etas.shape)} != "
+                                 f"{expect}")
+            gammas = gamma_stacks
+            if gammas is None:
+                gammas = (mobility_lib.gamma_stack(etas, fed.gamma) if shared
+                          else torch.stack([mobility_lib.gamma_stack(
+                              e, fed.gamma) for e in etas]))
+        # gammas are small: always a (V, R) stack
+        gammas = torch.as_tensor(gammas, **f32)
+        if gammas.dim() == 1:
+            gammas = gammas[None].expand(v, num_rounds)
+        if tuple(gammas.shape) != (v, num_rounds):
+            raise ValueError(f"gamma stacks shape {tuple(gammas.shape)} != "
+                             f"{(v, num_rounds)}")
+        return etas, gammas, shared
+
+    def run_rounds_batch(states: FedState, data: dict, num_rounds: int, *,
+                         rngs=None, n_items=None, eta_stacks=None,
+                         gamma_stacks=None, lrs=None, idx=None):
+        """Batched multi-round driver: V whole runs at once, the
+        fleet-sweep twin of :func:`run_rounds`. Every round runs the
+        launches of one round of one run, over V·K node rows.
+
+        states: a (V,)-stacked FedState (:func:`stack_states`), left as it
+               was. All variants must sit at the same round.
+        data:  ONE node-stacked dataset dict, SHARED by every variant.
+        rngs:  per-variant batch-sampling generators or seeds (a sequence
+               of V), or one, broadcast (default: seed ``train.seed +
+               1``): variant v draws the indices a single run with
+               ``generator=rngs[v]`` draws, so a batched run reproduces V
+               single runs.
+        idx:   explicit (V, R, K, S, B) batch indices in place of the drawn
+               ones (port-only, as :func:`run_rounds` takes (R, K, S, B)).
+        eta_stacks: per-variant mixing stacks — dense ``(V, R, K, K)`` or
+               ``SparseEta`` with ``(V, R, K, D)`` stacks — or ONE shared
+               ``(R, K, K)`` / ``(R, K, D)`` stack; ``None`` derives the
+               config's own shared stacks via :func:`mixing_stack`.
+        gamma_stacks: ``(V, R)`` / ``(R,)`` per-round step sizes; derived
+               from ``eta_stacks`` via the stability bound when omitted.
+        lrs:   optional (V,) per-variant learning rates; ``None`` keeps the
+               TrainConfig rate.
+
+        One fault plan (the config's) is shared by every variant: its link
+        mask folds into each variant's stacks, and the wire guard, the
+        freeze and the straggle replay act per variant.
+
+        ``loss_fn`` sees the V·K node rows at once (params and batch leaves
+        ``(V·K, ...)``); ``eval_fn`` is called once a variant, on that
+        variant's ``(K, ...)`` views.
+
+        Returns ``(final_states, metrics)``, every metric with a leading
+        (V,) axis: ``loss`` (V, R, K), ``disagreement`` and ``gamma`` (V,
+        R); with ``eval_fn`` ``eval`` (V, R, K); under faults ``health``,
+        ``quarantined`` and ``frozen`` (V, R, K)."""
+        if hier_cfg is not None:
+            raise ValueError(
+                "batched execution does not support mixing_format="
+                "'hierarchical' yet — the two-tier HierEta stacks carry "
+                "per-round cluster geometry that differs per variant "
+                "(recorded ROADMAP follow-on); run hierarchical sweeps "
+                "one variant at a time")
+        rounds = torch.as_tensor(states.round).cpu()
+        if rounds.dim() != 1:
+            raise ValueError(
+                "run_rounds_batch needs a (V,)-stacked FedState — stack "
+                f"init results along a leading variant axis (round "
+                f"counter has shape {tuple(rounds.shape)})")
+        v = rounds.shape[0]
+        if not bool((rounds == rounds[0]).all()):
+            raise ValueError(
+                f"all variants must sit at the same round to share one "
+                f"scan (got rounds {rounds.tolist()})")
+        start = int(rounds[0])
+        if tuple(states.buf.shape[:2]) != (v, k):
+            raise ValueError(f"stacked params {tuple(states.buf.shape)} do "
+                             f"not lead with (V={v}, K={k})")
+        data = {name: torch.as_tensor(x, device=dev)
+                for name, x in data.items()}
+        max_items = next(iter(data.values())).shape[1]
+        shape = (num_rounds, k, fed.local_steps, train.batch_size)
+        n_items = item_counts(n_items, max_items)
+        if idx is None:
+            idx = variant_indices(rngs, v, shape, n_items, max_items)
+        idx = checked_indices(idx, (v,) + shape, max_items, n_items)
+        etas, gammas, shared = variant_stacks(states, num_rounds, start, v,
+                                              eta_stacks, gamma_stacks)
+        adam = fopt
+        if lrs is not None:
+            lrs = torch.as_tensor(lrs, dtype=torch.float32, device=dev)
+            if tuple(lrs.shape) != (v,):
+                raise ValueError(f"lrs shape {tuple(lrs.shape)} != ({v},)")
+            adam = flat_adam(lrs[:, None], train.beta1, train.beta2,
+                             train.eps, train.weight_decay, train.grad_clip)
+        if faulty:
+            # ONE fault plan shared by every variant; the surviving-link
+            # mask folds into each variant's stacks, as run_rounds does
+            plan = faults_lib.compile_plan(fed.faults, num_rounds, k,
+                                           start=start)
+            mask = torch.as_tensor(plan.link_mask, device=dev)
+            if isinstance(etas, topology.SparseEta):
+                etas = mobility_lib.masked_sparse_stack(etas, mask)
+            else:
+                etas = mobility_lib.masked_eta_stack(etas, mask)
+            del mask
+            health, byz, corrupt, straggle = (
+                torch.as_tensor(a, device=dev) for a in
+                (plan.health, plan.byz, plan.corrupt, plan.straggle))
+        layout = states.layout
+        buf, opt, tstate = states.buf, states.opt, states.tstate
+        prev = states.fstate
+        if faulty and has_straggle and not isinstance(prev, torch.Tensor):
+            prev = buf
+        series = {name: [] for name in (
+            "loss", "disagreement", "eval", "health", "quarantined",
+            "frozen")}
+        for r in range(num_rounds):
+            eta_r = round_slice(etas, r if shared else (slice(None), r))
+            gamma_r = gammas[:, r]
+            sent = None
+            if faulty:
+                # each variant's wire, built and guarded as run_rounds
+                # builds one run's, over (V, K, P)
+                sent = buf
+                if has_straggle:
+                    sent = torch.where(straggle[r][:, None] > 0, prev, sent)
+                if has_byz:
+                    sent = sent * byz[r][:, None]
+                if has_corrupt:
+                    sent = faults_lib.corrupt_rows(
+                        sent, corrupt[r], fed.faults.corrupt_mode)
+                sent, eta_r, quarantined = faults_lib.wire_guard(
+                    sent, buf, eta_r, fed.faults.guard_threshold)
+            entry_buf, entry_opt = (buf, opt) if faulty else (None, None)
+            if dpsgd:
+                carry = [buf, opt]
+                del buf, opt
+                buf, opt, loss = local_steps(
+                    carry, layout, gathered(data, idx[:, r]),
+                    fed.local_steps,
+                    mix=lambda b: gossip(b, eta_r, gamma_r), adam=adam)
+            else:
+                buf, tstate = mix_buf(buf, states.sizes, eta_r, gamma_r,
+                                      layout, tstate, start + r, sent=sent)
+                carry = [buf, opt]
+                del buf, opt
+                buf, opt, loss = local_steps(
+                    carry, layout, gathered(data, idx[:, r]),
+                    fed.local_steps, adam=adam)
+            series["loss"].append(loss)
+            series["disagreement"].append(
+                flatten.disagreement_flat(buf, layout.total))
+            if eval_fn is not None:
+                # one call a variant: eval_fn takes one run's (K, ...) views
+                with torch.no_grad():
+                    series["eval"].append(torch.stack([
+                        eval_fn(flatten.unflatten(b, layout)) for b in buf]))
+            if faulty:
+                finite = torch.isfinite(buf).all(dim=-1)
+                keep = (health[r] > 0) & finite
+                buf = torch.where(keep[..., None], buf, entry_buf)
+                opt = _freeze_rows(opt, entry_opt, keep)
+                series["health"].append(health[r].expand(v, k))
+                series["quarantined"].append(quarantined)
+                series["frozen"].append(
+                    ((health[r] > 0) & ~finite).to(torch.float32))
+                if has_straggle:
+                    prev = entry_buf
+        metrics = {name: torch.stack(x, dim=1)
+                   for name, x in series.items() if x}
+        metrics["gamma"] = gammas.clone()
+        final = FedState(buf, layout, opt, states.ratios, states.sizes,
+                         rounds + num_rounds, tstate, prev)
+        return final, metrics
+
     return Trainer(init=init, round=round_fn, eta_fn=eta_fn, mixing=mixing,
                    run_rounds=run_rounds, device=dev,
-                   mixing_stack=mixing_stack)
+                   mixing_stack=mixing_stack,
+                   run_rounds_batch=run_rounds_batch)

@@ -129,12 +129,14 @@ def flatten(params, layout: FlatLayout | None = None):
 
 def unflatten(buf: torch.Tensor, layout: FlatLayout):
     """The layout's tree of leaf views of the ``(K, P)`` buffer (no copy
-    for f32 leaves; other dtypes are cast back, which copies)."""
-    k = buf.shape[0]
+    for f32 leaves; other dtypes are cast back, which copies). Any leading
+    axes pass through: a ``(V, K, P)`` buffer gives ``(V, K, ...)`` leaves
+    and a ``(V·K, P)`` one ``(V·K, ...)`` leaves."""
+    lead = tuple(buf.shape[:-1])
     leaves = []
     for shape, dtype, off, size in zip(layout.shapes, layout.dtypes,
                                        layout.offsets, layout.sizes):
-        leaf = buf[:, off:off + size].view((k,) + shape)
+        leaf = buf[..., off:off + size].view(lead + shape)
         leaves.append(leaf if dtype == buf.dtype else leaf.to(dtype))
     return build_tree(layout.paths, leaves)
 
@@ -153,7 +155,9 @@ def prefix_length(layout: FlatLayout, fraction: float) -> int:
 def apply_matrix_flat(buf: torch.Tensor,
                       matrix: torch.Tensor) -> torch.Tensor:
     """``A @ BUF``: any (K, K) linear consensus operator applied to every
-    parameter of every node in one call (kernel B2 on the card)."""
+    parameter of every node in one call (kernel B2 on the card). A
+    ``(V, K, P)`` buffer of V variants takes one (K, K) operator or V of
+    them, in the same one call."""
     return ops.flat_consensus(matrix.to(buf.dtype).contiguous(), buf)
 
 
@@ -169,7 +173,8 @@ def mix_flat(buf: torch.Tensor, eta: torch.Tensor, gamma,
     cancellation error at the f32 noise floor. ``wire`` is the buffer as
     it traveled the network (default ``buf``), e.g. its bf16 cast: only
     the difference terms see the wire precision, ``buf`` stays the f32
-    master."""
+    master. A ``(V, K, P)`` buffer of V variants mixes in the same one
+    call, with eta (K, K) or (V, K, K) and gamma (V,)."""
     w = buf if wire is None else wire
     out = ops.flat_mix(eta.to(buf.dtype).contiguous(), buf, w, gamma)
     if self_weight == 1.0:
@@ -211,6 +216,32 @@ def cluster_mix_flat(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                            gamma_node.to(buf.dtype), plan=plan)
 
 
+def sparse_mix_variants(buf: torch.Tensor, idx: torch.Tensor,
+                        val: torch.Tensor, gamma,
+                        wire: torch.Tensor | None = None,
+                        wire_self: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Eq. (5) with top-D sparse weights for V variants at once: ``buf``
+    ``(V, K, P)``, tables ``(K, D)`` shared or ``(V, K, D)``, gamma
+    ``(V,)``. The variants run as one ``(V·K, P)`` buffer through
+    :func:`cluster_mix_flat` (kernel B6, no plan): variant v's indices are
+    offset by ``v·K`` and its gamma repeated over its K rows. ``wire`` and
+    ``wire_self`` as in :func:`cluster_mix_flat`, ``(V, K, P)``."""
+    v, k, p = buf.shape
+    d = idx.shape[-1]
+    offset = torch.arange(v, dtype=torch.int32, device=idx.device) * k
+    rows = (idx.to(torch.int32) + offset[:, None, None]).reshape(v * k, d)
+    g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+    g = g.reshape(v).repeat_interleave(k)
+    w = buf if wire is None else wire
+    ws = w if wire_self is None else wire_self
+    out = cluster_mix_flat(buf.reshape(v * k, p), rows.contiguous(),
+                           val.expand(v, k, d).reshape(v * k, d).contiguous(),
+                           g, wire=w.reshape(v * k, p).contiguous(),
+                           wire_self=ws.reshape(v * k, p).contiguous())
+    return out.view(v, k, p)
+
+
 def partial_mix_flat(buf: torch.Tensor, eta, gamma,
                      prefix: int) -> torch.Tensor:
     """Eq. (5) on the first ``prefix`` buffer columns only (C-DFA(M):
@@ -230,7 +261,8 @@ def partial_mix_flat(buf: torch.Tensor, eta, gamma,
 
 def disagreement_flat(buf: torch.Tensor, total: int) -> torch.Tensor:
     """Mean squared node deviation from the node mean. ``total`` is the
-    unpadded per-node element count (the zero padding adds nothing)."""
-    mu = buf.mean(dim=0, keepdim=True)
-    ss = torch.sum((buf - mu) ** 2)
-    return ss / (buf.shape[0] * total)
+    unpadded per-node element count (the zero padding adds nothing). A
+    ``(V, K, P)`` buffer gives the (V,) values of its variants."""
+    mu = buf.mean(dim=-2, keepdim=True)
+    ss = torch.sum((buf - mu) ** 2, dim=(-2, -1))
+    return ss / (buf.shape[-2] * total)

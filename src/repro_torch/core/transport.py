@@ -96,11 +96,20 @@ class DenseTransport:
         node's own buffer through the codec (a node never receives
         itself). The sparse form is kernel B6 with the step size broadcast
         to every node: the gathered rows come from ``sent``, the self
-        rescale from ``buf``."""
+        rescale from ``buf``.
+
+        A ``(V, K, P)`` buffer exchanges V variants at once (the batched
+        sweeps): dense weights (K, K) or (V, K, K) through one B1 or B2
+        launch, sparse tables (K, D) or (V, K, D) through one B6 launch on
+        the (V·K, P) rows, gamma (V,)."""
         sparse = isinstance(eta, SparseEta)
+        batched = buf.dim() == 3
         if sent is None:
             wire = self.wire(buf)
-            if sparse:
+            if sparse and batched:
+                out = flatten.sparse_mix_variants(buf, eta.idx, eta.val,
+                                                  gamma, wire=wire)
+            elif sparse:
                 out = flatten.sparse_mix_flat(buf, eta.idx, eta.val, gamma,
                                               wire=wire)
             else:
@@ -108,6 +117,11 @@ class DenseTransport:
             return out, state
         codec = self.codec
         g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+        if sparse and batched:
+            out = flatten.sparse_mix_variants(
+                buf, eta.idx, eta.val, g, wire=codec.encode(sent),
+                wire_self=codec.encode(buf))
+            return out, state
         if sparse:
             gamma_node = g.reshape(1).expand(buf.shape[0]).contiguous()
             out = flatten.cluster_mix_flat(
@@ -118,9 +132,11 @@ class DenseTransport:
         w_nb = codec.roundtrip(sent)
         w_self = codec.roundtrip(buf)
         eta32 = eta.to(buf.dtype)
-        row = eta32.sum(dim=1)
+        row = eta32.sum(dim=-1)
         mixed = flatten.apply_matrix_flat(w_nb.contiguous(), eta32)
-        return buf + g * (mixed - row[:, None] * w_self), state
+        if batched:
+            g = g.reshape(-1, 1, 1)
+        return buf + g * (mixed - row[..., None] * w_self), state
 
 
 @transports.register("dense")

@@ -50,6 +50,13 @@
 //   index in ascending order (no split-K), and sum each row of eta in
 //   32-term partials, so the tiled kernel gives the numbers the small kernel
 //   gives at the same K.
+// * A variant axis (the counterpart of the Pallas kernels under jax.vmap in
+//   the reference's batched sweeps, src/repro/core/cdfl.py:917-931):
+//   blockIdx.z is the variant v of V. master, wire and out move by K*P a
+//   variant, gamma by 1, and eta by eta_stride: 0 when every variant shares
+//   one (K, K) stack (the reference's in_axes=None), K*K when each has its
+//   own. A block sees only its variant's pointers, so each variant sums in
+//   the order of a V = 1 launch and equals it bit for bit.
 // * Any K >= 1 and P >= 1, any 4-byte (f32) or 2-byte (bf16) aligned start.
 //   Rows and nodes past K are zero-filled in the stages and columns past P
 //   are masked. A P that is not a multiple of the 16-byte vector width, or a
@@ -70,6 +77,11 @@ bool aligned16(const void* ptr) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// Variant blockIdx.z's offset into the (V, K, P) buffers.
+__device__ __forceinline__ size_t variant_offset(int k, int p) {
+  return (size_t)blockIdx.z * k * p;
 }
 
 // ---------------------------------------------------------------------------
@@ -143,16 +155,20 @@ __global__ void __launch_bounds__(kCols)
 flat_mix_kernel(const float* __restrict__ eta, const float* __restrict__ master,
                 const WireT* __restrict__ wire,
                 const float* __restrict__ gamma, float* __restrict__ out,
-                int k, int p) {
-  small_body<TR, true>(eta, master, wire, gamma, out, k, p);
+                int k, int p, int eta_stride) {
+  const size_t o = variant_offset(k, p);
+  small_body<TR, true>(eta + (size_t)blockIdx.z * eta_stride, master + o,
+                       wire + o, gamma + blockIdx.z, out + o, k, p);
 }
 
 template <int TR>
 __global__ void __launch_bounds__(kCols)
 flat_consensus_kernel(const float* __restrict__ a,
                       const float* __restrict__ buf, float* __restrict__ out,
-                      int k, int p) {
-  small_body<TR, false, float>(a, nullptr, buf, nullptr, out, k, p);
+                      int k, int p, int a_stride) {
+  const size_t o = variant_offset(k, p);
+  small_body<TR, false, float>(a + (size_t)blockIdx.z * a_stride, nullptr,
+                               buf + o, nullptr, out + o, k, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -403,16 +419,22 @@ __global__ void __launch_bounds__(tiled_threads(BM), 512 / tiled_threads(BM))
 flat_mix_tiled(const float* __restrict__ eta, const float* __restrict__ master,
                const WireT* __restrict__ wire,
                const float* __restrict__ gamma, float* __restrict__ out,
-               int k, int p) {
-  tiled_body<BM, true, WireT, kVec>(eta, master, wire, gamma, out, k, p);
+               int k, int p, int eta_stride) {
+  const size_t o = variant_offset(k, p);
+  tiled_body<BM, true, WireT, kVec>(eta + (size_t)blockIdx.z * eta_stride,
+                                    master + o, wire + o, gamma + blockIdx.z,
+                                    out + o, k, p);
 }
 
 template <int BM, bool kVec>
 __global__ void __launch_bounds__(tiled_threads(BM), 512 / tiled_threads(BM))
 flat_consensus_tiled(const float* __restrict__ a,
                      const float* __restrict__ buf, float* __restrict__ out,
-                     int k, int p) {
-  tiled_body<BM, false, float, kVec>(a, nullptr, buf, nullptr, out, k, p);
+                     int k, int p, int a_stride) {
+  const size_t o = variant_offset(k, p);
+  tiled_body<BM, false, float, kVec>(a + (size_t)blockIdx.z * a_stride,
+                                     nullptr, buf + o, nullptr, out + o, k,
+                                     p);
 }
 
 int small_rows(int k) { return k <= 4 ? 4 : k <= 8 ? 8 : k <= 16 ? 16 : 32; }
@@ -426,9 +448,11 @@ bool vector_ok(const void* master, const WireT* wire, const void* out,
 
 template <typename WireT>
 int launch_mix(const float* eta, const float* master, const WireT* wire,
-               const float* gamma, float* out, int k, int p, void* stream) {
+               const float* gamma, float* out, int k, int p, int v,
+               int eta_stride, void* stream) {
+  if (v < 1 || v > 65535) return static_cast<int>(cudaErrorInvalidValue);
   using Fn = void (*)(const float*, const float*, const WireT*, const float*,
-                      float*, int, int);
+                      float*, int, int, int);
   Fn fn;
   int rows, threads;
   if (k < kTiledMinK) {
@@ -453,15 +477,16 @@ int launch_mix(const float* eta, const float* master, const WireT* wire,
     }
     threads = tiled_threads(rows);
   }
-  const dim3 grid((p + kBN - 1) / kBN, (k + rows - 1) / rows);
+  const dim3 grid((p + kBN - 1) / kBN, (k + rows - 1) / rows, v);
   fn<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      eta, master, wire, gamma, out, k, p);
+      eta, master, wire, gamma, out, k, p, eta_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_consensus(const float* a, const float* buf, float* out, int k,
-                     int p, void* stream) {
-  using Fn = void (*)(const float*, const float*, float*, int, int);
+                     int p, int v, int a_stride, void* stream) {
+  if (v < 1 || v > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  using Fn = void (*)(const float*, const float*, float*, int, int, int);
   Fn fn;
   int rows, threads;
   if (k < kTiledMinK) {
@@ -479,9 +504,9 @@ int launch_consensus(const float* a, const float* buf, float* out, int k,
                     : (vec ? flat_consensus_tiled<128, true>
                            : flat_consensus_tiled<128, false>);
   }
-  const dim3 grid((p + kBN - 1) / kBN, (k + rows - 1) / rows);
+  const dim3 grid((p + kBN - 1) / kBN, (k + rows - 1) / rows, v);
   fn<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, buf, out, k,
-                                                              p);
+                                                              p, a_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -620,30 +645,36 @@ int neighbor_mix(const void* w, const void* nb, const void* eta,
 
 }  // namespace
 
+// v variants of (K, P) buffers; eta_stride 0 (one shared eta) or K*K
 extern "C" int repro_flat_mix_f32(const void* eta, const void* master,
                                   const void* wire, const void* gamma,
-                                  void* out, int k, int p, void* stream) {
+                                  void* out, int k, int p, int v,
+                                  int eta_stride, void* stream) {
   return launch_mix<float>(
       static_cast<const float*>(eta), static_cast<const float*>(master),
       static_cast<const float*>(wire), static_cast<const float*>(gamma),
-      static_cast<float*>(out), k, p, stream);
+      static_cast<float*>(out), k, p, v, eta_stride, stream);
 }
 
 extern "C" int repro_flat_mix_bf16(const void* eta, const void* master,
                                    const void* wire, const void* gamma,
-                                   void* out, int k, int p, void* stream) {
+                                   void* out, int k, int p, int v,
+                                   int eta_stride, void* stream) {
   return launch_mix<__nv_bfloat16>(
       static_cast<const float*>(eta), static_cast<const float*>(master),
       static_cast<const __nv_bfloat16*>(wire),
-      static_cast<const float*>(gamma), static_cast<float*>(out), k, p,
-      stream);
+      static_cast<const float*>(gamma), static_cast<float*>(out), k, p, v,
+      eta_stride, stream);
 }
 
+// v variants; a_stride 0 (one shared operator) or K*K
 extern "C" int repro_flat_consensus(const void* a, const void* buf, void* out,
-                                    int k, int p, void* stream) {
+                                    int k, int p, int v, int a_stride,
+                                    void* stream) {
   return launch_consensus(static_cast<const float*>(a),
                           static_cast<const float*>(buf),
-                          static_cast<float*>(out), k, p, stream);
+                          static_cast<float*>(out), k, p, v, a_stride,
+                          stream);
 }
 
 extern "C" int repro_consensus_mix_f32(const void* w, const void* nb,

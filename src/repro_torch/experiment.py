@@ -40,15 +40,20 @@ full-width model there).
   host-side hooks (:class:`CheckpointCallback`, :class:`ChurnLogCallback`)
   fire at segment boundaries, and the metrics of the segments are
   concatenated along the rounds axis.
+* **Batched sweeps.** ``compile_batch(data, node_items, SweepAxes(...))``
+  builds a :class:`BatchedSession`: the V variants of the axes' cross
+  product (seeds, learning rates, step-size caps, mobility scenarios) run
+  through ``Trainer.run_rounds_batch``, V runs in the launches of one.
+  Variant v equals a plain :class:`Session` compiled with its seed and
+  configs.
 
-Batched sweeps (``SweepAxes``, ``BatchedSession``, ``compile_batch``) and
-``IngestCallback`` are not ported yet (ROADMAP queue A items 21 and 19).
+``IngestCallback`` is not ported yet (ROADMAP queue A item 19).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,11 +63,13 @@ from repro_torch.checkpointing import restore as _ckpt_restore
 from repro_torch.checkpointing import save as _ckpt_save
 from repro_torch.configs.base import FedConfig, RunConfig, TrainConfig
 from repro_torch.core import flatten
-from repro_torch.core.cdfl import FedState, Trainer, build_trainer
+from repro_torch.core.cdfl import (FedState, Trainer, build_trainer,
+                                   select_state, stack_states)
 from repro_torch.device import resolve_device
 
 __all__ = [
     "Experiment", "Session", "RunResult",
+    "SweepAxes", "BatchedSession", "BatchResult",
     "Callback", "EvalCallback", "CheckpointCallback", "ChurnLogCallback",
     "DegreeStatsCallback", "HealthCallback",
 ]
@@ -242,6 +249,97 @@ class RunResult:
 
 
 # --------------------------------------------------------------------------
+# Batched fleet sweeps.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SweepAxes:
+    """What varies across the V variants of a batched fleet sweep.
+
+    Every axis is optional; the variant set is the CROSS PRODUCT of the
+    given axes (last axis fastest, like nested loops):
+
+    seeds:    an int N (seeds ``0..N-1``) or an explicit sequence — seed
+              ``s`` inits params from a generator seeded with ``s`` and
+              samples batches with sample seed ``s + 1``.
+    lr:       per-variant learning rates (not available when the config's
+              learning rate is a schedule).
+    gamma:    per-variant consensus step-size caps (eq. 5's gamma,
+              bounded per round by the stability bound as usual).
+    mobility: per-variant ``MobilityConfig`` (or ``None`` for the static
+              graph) — each variant runs its own kinematic scenario via a
+              per-variant ``(V, R, K, K)`` / ``(V, R, K, D)`` stack.
+
+    Everything else — fleet size, topology family, transport, local steps,
+    fault plan, model — is shared by all variants. Sweep those by building
+    one batch per config.
+    """
+
+    seeds: Any = None
+    lr: Optional[Sequence[float]] = None
+    gamma: Optional[Sequence[float]] = None
+    mobility: Optional[Sequence[Any]] = None
+
+    def seed_list(self) -> Optional[list]:
+        if self.seeds is None:
+            return None
+        if isinstance(self.seeds, int):
+            if self.seeds <= 0:
+                raise ValueError(f"seeds count must be positive, got "
+                                 f"{self.seeds}")
+            return list(range(self.seeds))
+        seeds = [int(s) for s in self.seeds]
+        if not seeds:
+            raise ValueError("seeds sequence is empty")
+        return seeds
+
+    def variants(self) -> list:
+        """The cross product, as a list of dicts with the keys ``seed``,
+        ``lr``, ``gamma`` and ``mobility``; unswept axes hold ``None``."""
+        axes = [
+            ("seed", self.seed_list()),
+            ("lr", list(self.lr) if self.lr is not None else None),
+            ("gamma", list(self.gamma) if self.gamma is not None
+             else None),
+            ("mobility", list(self.mobility) if self.mobility is not None
+             else None),
+        ]
+        swept = [(name, vals) for name, vals in axes if vals is not None]
+        if not swept:
+            raise ValueError(
+                "SweepAxes needs at least one axis (seeds / lr / gamma "
+                "/ mobility)")
+        for name, vals in swept:
+            if len(vals) == 0:
+                raise ValueError(f"sweep axis {name!r} is empty")
+        out = [dict(seed=None, lr=None, gamma=None, mobility=None)]
+        for name, vals in swept:
+            out = [dict(v, **{name: val}) for v in out for val in vals]
+        return out
+
+
+@dataclasses.dataclass
+class BatchResult(RunResult):
+    """What one :meth:`BatchedSession.run_batch` produced: every tensor of
+    ``state`` and every metric carries a leading (V,) variant axis
+    (metrics: ``(V, R, K)``); ``variants`` names what each slot ran."""
+
+    variants: Sequence[dict] = ()
+
+    @property
+    def num_variants(self) -> int:
+        return len(self.variants)
+
+    def select(self, i: int) -> RunResult:
+        """The single-variant view: variant ``i``'s final state and
+        ``(R, K)`` metrics as a plain :class:`RunResult`."""
+        return RunResult(
+            state=select_state(self.state, i),
+            metrics={k: v[i] for k, v in self.metrics.items()},
+            rounds=self.rounds, wall_time_s=self.wall_time_s)
+
+
+# --------------------------------------------------------------------------
 # Experiment.
 # --------------------------------------------------------------------------
 
@@ -388,9 +486,18 @@ class Experiment:
         """
         data = {name: torch.as_tensor(v, device=self.device)
                 for name, v in data.items()}
+        state = self._init(data, node_items, _generator(rng, self.train.seed),
+                           same_init)
+        return Session(self, data, state, n_items=n_items,
+                       sample_rng=sample_rng)
+
+    def _init(self, data, node_items, gen: torch.Generator,
+              same_init: bool) -> FedState:
+        """The initialized state of one run: params drawn from ``gen``
+        (each node's the next draw with ``same_init=False``), then
+        ``trainer.init`` with its CND sketch."""
         trainer = self.trainer(data)
         _, init_params = self._model_fns(data)
-        gen = _generator(rng, self.train.seed)
         if same_init:
             params = init_params(gen)
         else:
@@ -400,14 +507,73 @@ class Experiment:
                 [path for path, _ in trees[0]],
                 [torch.stack([torch.as_tensor(t[i][1]) for t in trees])
                  for i in range(len(trees[0]))])
-        state = trainer.init(params, node_items, same_init=same_init)
-        return Session(self, data, state, n_items=n_items,
-                       sample_rng=sample_rng)
+        return trainer.init(params, node_items, same_init=same_init)
+
+    def compile_batch(self, data, node_items, axes: SweepAxes, *,
+                      rng=None, sample_rng=None, n_items=None,
+                      same_init: bool = True) -> "BatchedSession":
+        """Build a :class:`BatchedSession`: V variant runs — the cross
+        product of ``axes`` — over one (V,)-stacked :class:`FedState`.
+
+        The dataset, node sketches and any fault plan are SHARED by all
+        variants (one device copy); per-variant state costs ``V x (K, P)``
+        params plus two Adam moment buffers of the same shape, so budget
+        roughly ``3 V K P`` f32 on top of a single run. ``rng`` /
+        ``sample_rng`` seed the variants only when the seed axis is
+        unswept (a swept seed ``s`` inits from seed ``s`` and samples with
+        seed ``s + 1``). There is one init, with its CND sketch, per
+        unique seed.
+        """
+        if (axes.lr is not None and callable(self.train.learning_rate)):
+            raise ValueError(
+                "cannot sweep lr: this experiment's learning rate is a "
+                "schedule (callable); per-variant rates only override "
+                "constant rates")
+        variants = axes.variants()
+        data = {name: torch.as_tensor(v, device=self.device)
+                for name, v in data.items()}
+        # one init per UNIQUE seed (the only axis that changes init)
+        inits: Dict[Any, FedState] = {}
+        for v in variants:
+            if v["seed"] not in inits:
+                gen = _generator(rng if v["seed"] is None else v["seed"],
+                                 self.train.seed)
+                inits[v["seed"]] = self._init(data, node_items, gen,
+                                              same_init)
+        states = stack_states(inits[v["seed"]] for v in variants)
+        seeds = [_seed(sample_rng, self.train.seed + 1) if v["seed"] is None
+                 else v["seed"] + 1 for v in variants]
+        return BatchedSession(self, data, states, variants, seeds, axes,
+                              n_items=n_items)
 
 
 # --------------------------------------------------------------------------
 # Session.
 # --------------------------------------------------------------------------
+
+def _item_counts(n_items) -> Optional[torch.Tensor]:
+    return (None if n_items is None
+            else torch.as_tensor(n_items).to(torch.int64).cpu())
+
+
+def _batch_indices(experiment: Experiment, data, n_items, seed: int,
+                   start: int, rounds: int) -> torch.Tensor:
+    """:meth:`Session.batch_indices` of sample seed ``seed``."""
+    fed, train = experiment.fed, experiment.train
+    shape = (fed.num_nodes, fed.local_steps, train.batch_size)
+    max_items = next(iter(data.values())).shape[1]
+    out = []
+    for r in range(start, start + rounds):
+        key = np.random.SeedSequence([seed, r]).generate_state(2, np.uint32)
+        gen = torch.Generator().manual_seed((int(key[0]) << 32) | int(key[1]))
+        if n_items is None:
+            out.append(torch.randint(0, max_items, shape, generator=gen))
+        else:
+            u = torch.rand(shape, generator=gen)
+            n = n_items[:, None, None]
+            out.append(torch.minimum((u * n).to(torch.int64), n - 1))
+    return torch.stack(out)
+
 
 class Session:
     """A compiled, resumable run: live :class:`FedState` + resident data
@@ -419,8 +585,7 @@ class Session:
         self.experiment = experiment
         self.data = data
         self._state = state
-        self._n_items = (None if n_items is None
-                         else torch.as_tensor(n_items).to(torch.int64).cpu())
+        self._n_items = _item_counts(n_items)
         self._seed = _seed(sample_rng, experiment.train.seed + 1)
 
     @property
@@ -439,23 +604,9 @@ class Session:
         start + rounds)``: round r's from a CPU generator keyed on
         (``seed``, r), uniform over the resident items, or over each
         node's ``n_items`` as ``run_rounds`` draws them."""
-        seed = self._seed if seed is None else seed
-        fed, train = self.experiment.fed, self.experiment.train
-        shape = (fed.num_nodes, fed.local_steps, train.batch_size)
-        max_items = next(iter(self.data.values())).shape[1]
-        out = []
-        for r in range(start, start + rounds):
-            key = np.random.SeedSequence([seed, r]).generate_state(
-                2, np.uint32)
-            gen = torch.Generator().manual_seed(
-                (int(key[0]) << 32) | int(key[1]))
-            if self._n_items is None:
-                out.append(torch.randint(0, max_items, shape, generator=gen))
-            else:
-                u = torch.rand(shape, generator=gen)
-                n = self._n_items[:, None, None]
-                out.append(torch.minimum((u * n).to(torch.int64), n - 1))
-        return torch.stack(out)
+        return _batch_indices(self.experiment, self.data, self._n_items,
+                              self._seed if seed is None else seed, start,
+                              rounds)
 
     # -- running ------------------------------------------------------------
     def run(self, rounds: int, callbacks: Sequence[Callback] = (),
@@ -542,6 +693,141 @@ class Session:
                 f"different algorithm/transport/fault config or model "
                 f"size, or is it corrupt?): {e}") from e
         return self
+
+
+# --------------------------------------------------------------------------
+# BatchedSession.
+# --------------------------------------------------------------------------
+
+class BatchedSession:
+    """V variant runs over one (V,)-stacked :class:`FedState` and shared
+    resident data, run by ``Trainer.run_rounds_batch``. Not constructed
+    directly — use :meth:`Experiment.compile_batch`.
+
+    Unlike :class:`Session` this is NOT resumable: a batched run is a
+    one-shot sweep (checkpointing V entangled variants into the single-run
+    checkpoint format would silently break the segmentation-invariance
+    contract), so :meth:`save` and :meth:`resume` raise. Re-run the winning
+    variant through a plain ``compile()`` Session when it needs
+    checkpoints."""
+
+    def __init__(self, experiment: Experiment, data, states: FedState,
+                 variants: Sequence[dict], rngs: Sequence[int],
+                 axes: SweepAxes, *, n_items=None):
+        self.experiment = experiment
+        self.data = data
+        self._states = states
+        self.variants = list(variants)
+        self._rngs = list(rngs)          # each variant's sample seed
+        self._axes = axes
+        self._n_items = _item_counts(n_items)
+
+    @property
+    def num_variants(self) -> int:
+        return len(self.variants)
+
+    @property
+    def states(self) -> FedState:
+        """The live (V,)-stacked federated state."""
+        return self._states
+
+    @property
+    def rounds_completed(self) -> int:
+        return int(torch.as_tensor(self._states.round)[0])
+
+    def batch_indices(self, start: int, rounds: int) -> torch.Tensor:
+        """The (V, R, K, S, B) batch indices of absolute rounds ``[start,
+        start + rounds)``: variant v's those a plain :class:`Session` with
+        its sample seed draws (:meth:`Session.batch_indices`)."""
+        return torch.stack([_batch_indices(self.experiment, self.data,
+                                           self._n_items, seed, start,
+                                           rounds) for seed in self._rngs])
+
+    def run_batch(self, rounds: int,
+                  callbacks: Sequence[Callback] = ()) -> BatchResult:
+        """Advance ALL variants ``rounds`` federated rounds, V runs in the
+        launches of one: variant v's batch indices are those a plain
+        Session with its sample seed draws.
+
+        Only run-boundary callbacks are allowed (one :class:`EvalCallback`,
+        run-start and run-end hooks): periodic ``every=N`` callbacks
+        segment the run with host-side work per variant, which defeats the
+        batching — they raise here.
+        """
+        if rounds <= 0:
+            raise ValueError(f"rounds must be positive, got {rounds}")
+        callbacks = list(callbacks)
+        for cb in callbacks:
+            if cb.every:
+                raise ValueError(
+                    f"{type(cb).__name__}(every={cb.every}) needs "
+                    f"host-side scan segmentation — unsupported on "
+                    f"batched runs; use a plain Session per variant "
+                    f"for periodic callbacks")
+        eval_fns = [cb.eval_fn for cb in callbacks
+                    if cb.eval_fn is not None]
+        if len(eval_fns) > 1:
+            raise ValueError("at most one EvalCallback per run")
+        trainer = self.experiment.trainer(
+            self.data, eval_fn=eval_fns[0] if eval_fns else None)
+        for cb in callbacks:
+            cb.on_run_start(self, rounds)
+        t0 = time.time()
+        start = self.rounds_completed
+        etas = gammas = None
+        mob_swept = self._axes.mobility is not None
+        gamma_swept = self._axes.gamma is not None
+        if mob_swept or gamma_swept:
+            # per-variant graphs: build each UNIQUE (scenario, cap) stack
+            # once, share when the cross product collapses to one
+            state0 = select_state(self._states, 0)
+            keys = [(v["mobility"] if mob_swept else "config",
+                     v["gamma"] if gamma_swept else None)
+                    for v in self.variants]
+            uniq: Dict[Any, Any] = {}
+            for key in keys:
+                if key not in uniq:
+                    uniq[key] = trainer.mixing_stack(
+                        state0, rounds, start=start, mobility=key[0],
+                        gamma_cap=key[1])
+            if len(uniq) == 1:
+                etas, gammas = next(iter(uniq.values()))
+            else:
+                from repro_torch.mobility import mixing as mobility_mixing
+                etas = mobility_mixing.stack_variant_stacks(
+                    [uniq[k][0] for k in keys])
+                gammas = torch.stack([uniq[k][1].to(torch.float32)
+                                      for k in keys])
+        lrs = None
+        if self._axes.lr is not None:
+            lrs = torch.tensor([v["lr"] for v in self.variants],
+                               dtype=torch.float32)
+        self._states, metrics = trainer.run_rounds_batch(
+            self._states, self.data, rounds, n_items=self._n_items,
+            eta_stacks=etas, gamma_stacks=gammas, lrs=lrs,
+            idx=self.batch_indices(start, rounds))
+        if self._states.buf.is_cuda:
+            torch.cuda.synchronize(self._states.buf.device)
+        result = BatchResult(state=self._states, metrics=metrics,
+                             rounds=rounds, wall_time_s=time.time() - t0,
+                             variants=self.variants)
+        for cb in callbacks:
+            cb.on_run_end(self, result)
+        return result
+
+    # -- checkpoint / resume: deliberately unsupported ----------------------
+    def save(self, path: str) -> str:
+        raise ValueError(
+            "cannot checkpoint a batched run: the (V,)-stacked state "
+            "does not fit the single-run checkpoint format. Re-run the "
+            "variant you want to keep through Experiment.compile() and "
+            "save that Session.")
+
+    def resume(self, path: str) -> "BatchedSession":
+        raise ValueError(
+            "cannot resume a batched run: batched sessions are one-shot "
+            "sweeps. Resume single-run checkpoints through "
+            "Experiment.compile().resume(path).")
 
 
 # --------------------------------------------------------------------------

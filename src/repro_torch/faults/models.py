@@ -220,7 +220,7 @@ def wire_guard(sent: torch.Tensor, buf: torch.Tensor, eta,
     buffer, so no NaN reaches the mix (0 * NaN is NaN).
 
     Returns ``(sent_clean, eta_used, quarantined)``, ``quarantined`` the
-    (K,) 0/1 indicator. Everything is gated on a 0-dim ``any_bad`` tensor
+    (K,) 0/1 indicator. Everything is gated on an ``any_bad`` device flag
     with ``torch.where``: a clean round passes eta and sent through bit for
     bit, and no round reads the device from the host.
 
@@ -228,6 +228,11 @@ def wire_guard(sent: torch.Tensor, buf: torch.Tensor, eta,
     kept edge gathers its sender's flag, an O(K·D) edit) or a
     ``hierarchy.mixing.HierEta`` (both tiers edited: a quarantined
     leader's cluster skips inter-cluster mixing this round).
+
+    V variants guard at once (the batched sweeps): ``sent``/``buf`` (V, K,
+    P) with dense eta (K, K) or (V, K, K), or sparse tables (K, D) or (V,
+    K, D); each variant gates on its own payloads, and eta comes back one
+    a variant, ``quarantined`` (V, K).
     """
     from repro_torch.core.topology import SparseEta, renormalize_rows
 
@@ -238,26 +243,29 @@ def wire_guard(sent: torch.Tensor, buf: torch.Tensor, eta,
         return (sent_clean, eta._replace(intra=intra_used, inter=inter_used),
                 quarantined)
 
-    finite = torch.isfinite(sent).all(dim=1)
+    finite = torch.isfinite(sent).all(dim=-1)
     if threshold and threshold > 0:
-        blown = torch.nan_to_num(sent.abs(), nan=torch.inf).amax(dim=1) \
+        blown = torch.nan_to_num(sent.abs(), nan=torch.inf).amax(dim=-1) \
             > threshold
         bad = ~finite | blown
     else:
         bad = ~finite
-    any_bad = bad.any()
+    # one gate a variant: (1,) for a (K, P) payload, (V, 1) for (V, K, P)
+    any_bad = bad.any(dim=-1, keepdim=True)
     if isinstance(eta, SparseEta):
         ok = (~bad).to(eta.val.dtype)
-        masked = eta.val * ok[eta.idx.long()]
-        val_used = torch.where(any_bad,
-                               renormalize_rows(masked, eta.val.sum(dim=1)),
+        idx = eta.idx.long().expand(bad.shape[:-1] + eta.idx.shape[-2:])
+        ok_edge = torch.gather(ok, -1, idx.flatten(-2)).view(idx.shape)
+        masked = eta.val * ok_edge
+        val_used = torch.where(any_bad[..., None],
+                               renormalize_rows(masked, eta.val.sum(dim=-1)),
                                eta.val)
         eta_used = SparseEta(eta.idx, val_used)
     else:
         ok = (~bad).to(eta.dtype)
-        masked = eta * ok[None, :]
-        eta_used = torch.where(any_bad,
-                               renormalize_rows(masked, eta.sum(dim=1)), eta)
-    sent_clean = torch.where(any_bad, torch.where(bad[:, None], buf, sent),
-                             sent)
+        masked = eta * ok[..., None, :]
+        eta_used = torch.where(any_bad[..., None],
+                               renormalize_rows(masked, eta.sum(dim=-1)), eta)
+    sent_clean = torch.where(any_bad[..., None],
+                             torch.where(bad[..., None], buf, sent), sent)
     return sent_clean, eta_used, bad.to(torch.float32)

@@ -35,9 +35,9 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # source name -> {C entry point: argtypes}
 SIGNATURES: dict[str, dict[str, list]] = {
     "consensus_mix": {
-        "repro_flat_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "repro_flat_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "repro_flat_consensus": [_P, _P, _P, _I, _I, _P],
+        "repro_flat_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_flat_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "repro_flat_consensus": [_P, _P, _P, _I, _I, _I, _I, _P],
         "repro_consensus_mix_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
         "repro_consensus_mix_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
     },

@@ -8,7 +8,8 @@ PyTorch's current stream and raise on a CUDA error. The plain PyTorch
 versions live in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops`
 picks between the two by the tensor's device.
 
-Each wrapper counts its launches in its ``launches`` attribute.
+Each wrapper counts its launches in its ``launches`` attribute; B1 and B2
+also count those with a variant axis in ``launches_variants``.
 """
 from __future__ import annotations
 
@@ -39,19 +40,39 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _variants(eta: torch.Tensor, buf: torch.Tensor, what: str):
+    """(V, K, P, eta_stride) of a (K, P) or (V, K, P) buffer and a (K, K)
+    operator shared by every variant (stride 0) or (V, K, K), one a
+    variant (stride K*K)."""
+    _require(buf.dim() in (2, 3),
+             f"{what} must be (K, P) or (V, K, P), got {tuple(buf.shape)}")
+    v = buf.shape[0] if buf.dim() == 3 else 1
+    k, p = buf.shape[-2:]
+    _require(1 <= v <= 65535, f"{v} variants outside [1, 65535]")
+    if eta.dim() == 2:
+        _require(eta.shape == (k, k), f"eta {tuple(eta.shape)} != {(k, k)}")
+        return v, k, p, 0
+    _require(buf.dim() == 3 and eta.shape == (v, k, k),
+             f"eta {tuple(eta.shape)} != {(k, k)} or {(v, k, k)}")
+    return v, k, p, k * k
+
+
 def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
              gamma: torch.Tensor) -> torch.Tensor:
     """``OUT = MASTER + gamma * (ETA @ WIRE - rowsum(ETA) * WIRE)``.
 
     eta (K, K) f32; master (K, P) f32; wire (K, P) f32 or bf16; gamma a
-    one-element f32 tensor on the same device. Accumulates in f32."""
+    one-element f32 tensor on the same device. Accumulates in f32.
+
+    With a variant axis, master and wire are (V, K, P), gamma holds V
+    values and eta is (K, K), shared by every variant, or (V, K, K): one
+    launch mixes all V, each variant as a V = 1 launch would, bit for
+    bit."""
     dev = _check_cuda(eta, master, wire, gamma)
-    _require(master.dim() == 2, f"master must be (K, P), got {master.shape}")
-    k, p = master.shape
-    _require(eta.shape == (k, k), f"eta {tuple(eta.shape)} != {(k, k)}")
+    v, k, p, eta_stride = _variants(eta, master, "master")
     _require(wire.shape == master.shape,
              f"wire {tuple(wire.shape)} != master {tuple(master.shape)}")
-    _require(gamma.numel() == 1, "gamma must hold one value")
+    _require(gamma.numel() == v, f"gamma must hold {v} value(s)")
     for name, t in (("eta", eta), ("master", master), ("gamma", gamma)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
     if wire.dtype == torch.float32:
@@ -65,35 +86,39 @@ def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
     lib = _build.library(_LIB)
     code = getattr(lib, fn)(eta.data_ptr(), master.data_ptr(),
                             wire.data_ptr(), gamma.data_ptr(),
-                            out.data_ptr(), k, p, _stream(dev))
+                            out.data_ptr(), k, p, v, eta_stride, _stream(dev))
     flat_mix.launches += 1
+    flat_mix.launches_variants += master.dim() == 3
     _build.check(_LIB, fn, code)
     return out
 
 
+# launches, and those of them with a variant axis
 flat_mix.launches = 0
+flat_mix.launches_variants = 0
 
 
 def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
     """``OUT = A @ BUF`` for any (K, K) f32 operator and (K, P) f32 buffer,
-    in full f32 (no tensor cores)."""
+    in full f32 (no tensor cores). With a variant axis, buf is (V, K, P)
+    and the operator (K, K), shared, or (V, K, K)."""
     dev = _check_cuda(matrix, buf)
-    _require(buf.dim() == 2, f"buf must be (K, P), got {buf.shape}")
-    k, p = buf.shape
-    _require(matrix.shape == (k, k),
-             f"matrix {tuple(matrix.shape)} != {(k, k)}")
+    v, k, p, a_stride = _variants(matrix, buf, "buf")
     _require(matrix.dtype == torch.float32 and buf.dtype == torch.float32,
              "flat_consensus takes float32 tensors")
     out = torch.empty_like(buf)
     lib = _build.library(_LIB)
     code = lib.repro_flat_consensus(matrix.data_ptr(), buf.data_ptr(),
-                                    out.data_ptr(), k, p, _stream(dev))
+                                    out.data_ptr(), k, p, v, a_stride,
+                                    _stream(dev))
     flat_consensus.launches += 1
+    flat_consensus.launches_variants += buf.dim() == 3
     _build.check(_LIB, "repro_flat_consensus", code)
     return out
 
 
 flat_consensus.launches = 0
+flat_consensus.launches_variants = 0
 
 
 _MIX_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -38,10 +38,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 def flat_mix(eta, master, wire, gamma) -> torch.Tensor:
     """Fused eq. 5 delta mix on the flat buffer (B1):
-    ``MASTER + gamma * (ETA @ WIRE - rowsum(ETA) * WIRE)``."""
+    ``MASTER + gamma * (ETA @ WIRE - rowsum(ETA) * WIRE)``. With a variant
+    axis: master and wire (V, K, P), eta (K, K) shared or (V, K, K), gamma
+    (V,)."""
     if _on_cuda(master):
-        g = torch.as_tensor(gamma, dtype=torch.float32, device=master.device)
-        return _cm.flat_mix(eta, master, wire, g.reshape(1))
+        g = torch.as_tensor(gamma, dtype=torch.float32,
+                            device=master.device).reshape(-1).contiguous()
+        return _cm.flat_mix(eta, master, wire, g)
     return ref.flat_mix(eta, master, wire, gamma)
 
 
@@ -85,7 +88,8 @@ def consensus_mix_pytree(params: dict, neighbor_params: dict, eta,
 
 
 def flat_consensus(matrix, buf) -> torch.Tensor:
-    """``A @ BUF`` over the flat (K, P) buffer (B2)."""
+    """``A @ BUF`` over the flat (K, P) buffer (B2); with a variant axis,
+    buf (V, K, P) and A (K, K) shared or (V, K, K)."""
     if _on_cuda(buf):
         return _cm.flat_consensus(matrix, buf)
     return ref.flat_consensus(matrix, buf)

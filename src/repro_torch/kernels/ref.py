@@ -11,17 +11,21 @@ from repro_torch.core import sketch as _sketch
 def flat_mix(eta: torch.Tensor, master: torch.Tensor, wire: torch.Tensor,
              gamma) -> torch.Tensor:
     """``OUT = MASTER + gamma * (ETA @ WIRE - rowsum(ETA) * WIRE)`` with the
-    wire upcast to f32 before the product."""
+    wire upcast to f32 before the product. With a variant axis (the batched
+    sweeps): master and wire (V, K, P), eta (K, K) shared by every variant
+    or (V, K, K), gamma (V,)."""
     eta32 = eta.float()
     w32 = wire.float()
     g = torch.as_tensor(gamma, dtype=torch.float32, device=master.device)
-    row = eta32.sum(dim=1)
+    g = g.reshape(-1, 1, 1) if master.dim() == 3 else g.reshape(())
+    row = eta32.sum(dim=-1)
     mixed = eta32 @ w32
-    return master + g.reshape(()) * (mixed - row[:, None] * w32)
+    return master + g * (mixed - row[..., None] * w32)
 
 
 def flat_consensus(matrix: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
-    """``OUT = A @ BUF`` in f32."""
+    """``OUT = A @ BUF`` in f32; buf (K, P), or (V, K, P) with A (K, K)
+    shared or (V, K, K)."""
     return matrix.float() @ buf.float()
 
 

@@ -19,6 +19,10 @@ Two drivers:
   * ``--driver loop`` — one ``Trainer.round`` per round on host-built
     ``lm_batches``; kept for debugging and as the baseline.
 
+``--sweep seeds=2,lr=1e-3:3e-3`` runs the variant cross product through
+``Experiment.compile_batch`` (V runs in the launches of one) and prints the
+reference's per-variant table and ``SWEEP_SMOKE`` verdict.
+
 On the card, each training forward launches kernel B9 (attention) or B10
 (the rwkv wkv scan); the backward differentiates their plain versions, as
 the JAX package has no backward kernel either.
@@ -40,7 +44,7 @@ from repro_torch.configs.base import (FaultConfig, FedConfig, HierarchyConfig,
 from repro_torch.configs.registry import ARCHS, get_smoke_arch
 from repro_torch.data import pipeline, redundancy, synthetic
 from repro_torch.experiment import (ChurnLogCallback, DegreeStatsCallback,
-                                    Experiment, HealthCallback)
+                                    Experiment, HealthCallback, SweepAxes)
 from repro_torch.mobility.links import LINK_QUALITIES
 
 
@@ -228,10 +232,14 @@ def main(argv=None):
                     help="per-side trim count for --robust trimmed_mean")
     ap.add_argument("--sweep", type=_parse_sweep, default=None,
                     metavar="AXES",
-                    help="batched fleet sweep over axis=v1[:v2...] "
-                         "variants (axes: seeds, lr, gamma, mobility); "
-                         "not ported yet ("
-                         f"{registry.NOT_PORTED[('sweep', None)]})")
+                    help="batched fleet sweep: run the cross product of "
+                         "axis=v1[:v2...] variants (axes: seeds, lr, "
+                         "gamma, mobility) through one batched run via "
+                         "BatchedSession.run_batch — e.g. "
+                         "--sweep seeds=8,lr=1e-3:3e-3 — and print a "
+                         "per-variant results table (needs --driver "
+                         "scan; incompatible with --checkpoint: batched "
+                         "runs don't checkpoint)")
     ap.add_argument("--quick", action="store_true",
                     help="tiny model + corpus for CI smoke runs")
     ap.add_argument("--checkpoint", default=None)
@@ -249,7 +257,6 @@ def main(argv=None):
         if args.mixing_format == "hierarchical" or args.hierarchy:
             ap.error("--sweep does not support the hierarchical mixing "
                      "format yet (ROADMAP follow-on)")
-        raise _unported("--sweep", ("sweep", None))
 
     # --redundancy is overloaded: a float keeps the legacy host-side
     # duplicate injection (static CND ratios); a scenario name would
@@ -334,6 +341,10 @@ def main(argv=None):
     batcher_items = pipeline.FederatedBatcher(nodes, args.batch,
                                               args.local_steps)
 
+    if args.sweep is not None:
+        result = _run_sweep(args, run_cfg, data, batcher_items.node_items())
+        return result.state, result.metrics["loss"].cpu().numpy()
+
     # the Experiment derives the token-LM loss/init from RunConfig.model
     session = Experiment(run_cfg, device=args.device).compile(
         data, batcher_items.node_items())
@@ -407,6 +418,54 @@ def main(argv=None):
         save(args.checkpoint, state.params, step=args.rounds)
         print("saved params to", args.checkpoint)
     return state, losses
+
+
+def _run_sweep(args, run_cfg, data, node_items):
+    """``--sweep``: the variant cross product through
+    ``Experiment.compile_batch`` — V runs in the launches of one — plus the
+    per-variant results table and the greppable SWEEP_SMOKE verdict.
+    Returns the :class:`BatchResult`."""
+    spec = args.sweep
+    mob_axis = None
+    if "mobility" in spec:
+        mob_axis = [None if m == "static" else MobilityConfig(
+            kind=m, radio_range=args.radio_range, speed=args.speed,
+            speed_jitter=args.speed_jitter, seed=args.mobility_seed,
+            link_quality=args.link_quality) for m in spec["mobility"]]
+    axes = SweepAxes(seeds=spec.get("seeds"), lr=spec.get("lr"),
+                     gamma=spec.get("gamma"), mobility=mob_axis)
+    batched = Experiment(run_cfg, device=args.device).compile_batch(
+        data, node_items, axes)
+    v = batched.num_variants
+    print(f"sweep: {v} variants x {args.rounds} rounds "
+          f"(axes: {', '.join(sorted(spec))}) — one batched run")
+    result = batched.run_batch(args.rounds)
+    losses = result.metrics["loss"].cpu().numpy()        # (V, R, K)
+    first = losses[:, 0].mean(axis=-1)
+    final = losses[:, -1].mean(axis=-1)
+    dis = result.metrics["disagreement"].cpu().numpy()[:, -1]
+    print(f"{'variant':>7} {'seed':>5} {'lr':>9} {'gamma':>6} "
+          f"{'mobility':>10} {'loss_r0':>8} {'loss_rN':>8} "
+          f"{'disagree':>9}")
+    for i, var in enumerate(result.variants):
+        mob = var["mobility"]
+        seed_s = "-" if var["seed"] is None else str(var["seed"])
+        lr_s = "-" if var["lr"] is None else f"{var['lr']:.1e}"
+        g_s = "-" if var["gamma"] is None else f"{var['gamma']:.2f}"
+        mob_s = ("-" if "mobility" not in spec
+                 else (mob.kind if mob is not None else "static"))
+        print(f"{i:>7d} {seed_s:>5} {lr_s:>9} {g_s:>6} {mob_s:>10} "
+              f"{first[i]:>8.4f} {final[i]:>8.4f} {dis[i]:>9.2e}")
+    per_round = result.wall_time_s / max(args.rounds, 1)
+    print(f"total {result.wall_time_s:.1f}s for {v} runs "
+          f"({per_round * 1e3:.1f} ms/round for the whole fleet batch)")
+    improved = int((final < first).sum())
+    ok = (np.isfinite(losses).all() and v == len(result.variants)
+          and improved == v)
+    print(f"SWEEP_SMOKE {'ok' if ok else 'FAIL'} variants={v} "
+          f"improved={improved}/{v} "
+          f"loss_rN_mean={float(final.mean()):.4f}")
+    return result
 
 
 if __name__ == "__main__":

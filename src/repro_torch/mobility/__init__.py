@@ -24,7 +24,8 @@ from repro_torch.mobility.mixing import (constant_sparse_stacks,
                                          gamma_stack, masked_eta_stack,
                                          masked_sparse_stack,
                                          sparse_eta_stack,
-                                         sparse_gamma_stack)
+                                         sparse_gamma_stack,
+                                         stack_variant_stacks)
 from repro_torch.mobility.traces import trace
 
 __all__ = [
@@ -33,7 +34,8 @@ __all__ = [
     "sparse_radio_stack", "handover_stats", "degree_stats",
     "num_components", "eta_stack", "gamma_stack", "sparse_eta_stack",
     "sparse_gamma_stack", "constant_stacks", "constant_sparse_stacks",
-    "masked_eta_stack", "masked_sparse_stack", "links", "mixing", "traces",
+    "masked_eta_stack", "masked_sparse_stack", "stack_variant_stacks",
+    "links", "mixing", "traces",
 ]
 
 

@@ -56,9 +56,12 @@ def masked_sparse_stack(sp: topology.SparseEta,
     """Compose a fault-plan ``(R, K, K)`` link mask into a sparse stack by
     editing the (R, K, D) rows: each kept edge gathers its mask bit,
     dropped edges go to zero and the survivors are rescaled to the row's
-    pre-mask mass (the sparse twin of :func:`masked_eta_stack`)."""
+    pre-mask mass (the sparse twin of :func:`masked_eta_stack`). Stacks
+    with a leading variant axis share the one mask, as dense ones do."""
     mask = torch.as_tensor(link_mask, dtype=torch.float32,
                            device=sp.val.device)
+    # (V, R, K, D) variant stacks gather from the one (R, K, K) mask
+    mask = mask.expand(sp.idx.shape[:-1] + mask.shape[-1:])
     m = torch.gather(mask, -1, sp.idx.long())
     return topology.SparseEta(
         sp.idx, topology.renormalize_rows(sp.val * m, sp.val.sum(dim=-1)))
@@ -127,3 +130,20 @@ def constant_sparse_stacks(sp: topology.SparseEta, gamma, rounds: int):
                 sp.idx.expand((rounds,) + tuple(sp.idx.shape)),
                 sp.val.expand((rounds,) + tuple(sp.val.shape))),
             g.reshape(()).expand(rounds))
+
+
+def stack_variant_stacks(stacks):
+    """Stack per-VARIANT per-round mixing stacks along a new leading (V,)
+    axis for the batched fleet driver: dense ``(R, K, K)`` tensors become
+    ``(V, R, K, K)``; ``SparseEta`` ``(R, K, D)`` pairs become one
+    ``SparseEta`` with ``(V, R, K, D)`` stacks (stacked field by field, no
+    dense intermediate). Only call this when variants genuinely differ: V
+    copies of one scenario should stay a single shared stack, which
+    ``run_rounds_batch`` hands every variant (eta stride 0 in kernel
+    B1)."""
+    first = stacks[0]
+    if isinstance(first, topology.SparseEta):
+        return topology.SparseEta(
+            torch.stack([torch.as_tensor(s.idx) for s in stacks]),
+            torch.stack([torch.as_tensor(s.val) for s in stacks]))
+    return torch.stack([torch.as_tensor(s) for s in stacks])

@@ -20,8 +20,8 @@ caller.
 
 Names the JAX package knows but the port does not run yet are listed in
 :data:`NOT_PORTED`: a config may name them, and ``build_trainer`` (or the
-training CLI, for ``--sweep``) refuses them with the ROADMAP item that
-will port them. Its model-side twin,
+training CLI, for a scenario ``--redundancy``) refuses them with the
+ROADMAP item that will port them. Its model-side twin,
 :data:`MODEL_NOT_PORTED`, does the same for the model families, block
 kinds and modalities of ``ModelConfig`` that ``models/transformer.py``
 does not build yet (:func:`check_model_ported`).
@@ -99,8 +99,6 @@ NOT_PORTED = {
     ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
                              "transports)",
     ("ingest", None): "ROADMAP queue A item 19 (ingest)",
-    # launch/train.py --sweep: the batched sessions
-    ("sweep", None): "ROADMAP queue A item 21 (batched sweeps)",
 }
 
 _MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"

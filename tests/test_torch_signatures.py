@@ -2,10 +2,11 @@
 comparison (no JAX import) of every top-level function and class method of
 ``src/repro/kernels/ops.py``, ``src/repro/core/cdfl.py``,
 ``src/repro/experiment.py``, ``src/repro/checkpointing/checkpoint.py``,
-``src/repro/launch/train.py``, ``src/repro/data/pipeline.py`` and
-``src/repro/data/synthetic.py`` with its twin in ``src/repro_torch`` (the
-batched-sweep and ingest classes of ``experiment.py`` and the CLI's
-``_run_sweep`` wait for ROADMAP queue A items 21 and 19). The
+``src/repro/launch/train.py``, ``src/repro/data/pipeline.py``,
+``src/repro/data/synthetic.py`` and ``src/repro/mobility/mixing.py`` with
+its twin in ``src/repro_torch`` (the ingest callback of ``experiment.py``
+waits for ROADMAP queue A item 19), and of the trainer's batched driver
+and stack builder nested in ``build_trainer``. The
 leading positional parameters and their defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
 ``interpret``, ``transport``, ``flat_local``); the reference's
@@ -29,13 +30,13 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
           "repro_torch/checkpointing/checkpoint.py"),
          ("repro/launch/train.py", "repro_torch/launch/train.py"),
          ("repro/data/pipeline.py", "repro_torch/data/pipeline.py"),
-         ("repro/data/synthetic.py", "repro_torch/data/synthetic.py")]
+         ("repro/data/synthetic.py", "repro_torch/data/synthetic.py"),
+         ("repro/mobility/mixing.py", "repro_torch/mobility/mixing.py")]
 # whole functions that are dispatch switches of the reference, and the
-# classes and methods of the batched sweeps and ingest not ported yet
-DROPPED_FUNCTIONS = {"use_pallas", "_interpret", "_run_sweep"}
-DROPPED_CLASSES = {"SweepAxes", "BatchResult", "BatchedSession",
-                   "IngestCallback"}
-DROPPED_METHODS = {"Experiment.compile_batch"}
+# ingest callback not ported yet
+DROPPED_FUNCTIONS = {"use_pallas", "_interpret"}
+DROPPED_CLASSES = {"IngestCallback"}
+DROPPED_METHODS: set = set()
 DROPPED_PARAMS = {"force_kernel", "use_pallas", "interpret", "transport",
                   "flat_local"}
 
@@ -73,6 +74,10 @@ def _keyword_only(args: ast.arguments) -> dict[str, str | None]:
 CASES = [(ref_rel, port_rel, name)
          for ref_rel, port_rel in PAIRS
          for name in _functions(ref_rel) if name not in DROPPED_FUNCTIONS]
+# 62 before the batched sweeps: + SweepAxes (2), BatchResult (2),
+# BatchedSession (7), Experiment.compile_batch, _run_sweep and the ten
+# functions of mobility/mixing.py
+CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10
 
 
 def test_every_reference_function_is_compared():
@@ -83,8 +88,11 @@ def test_every_reference_function_is_compared():
             "latest_step", "run_experiment", "Experiment.__init__",
             "Experiment._model_fns", "Experiment.trainer", "main",
             "_parse_sweep", "_print_round", "lm_batches", "token_lm",
-            "FederatedBatcher.node_items"} <= names
-    assert len(CASES) == 62
+            "FederatedBatcher.node_items", "SweepAxes.variants",
+            "BatchResult.select", "BatchedSession.run_batch",
+            "Experiment.compile_batch", "_run_sweep",
+            "stack_variant_stacks"} <= names
+    assert len(CASES) == CASE_COUNT
 
 
 @pytest.mark.parametrize("ref_rel,port_rel,name", CASES,
@@ -99,6 +107,29 @@ def test_port_twin_keeps_the_reference_signature(ref_rel, port_rel, name):
     want_kw = {p: d for p, d in _keyword_only(_functions(ref_rel)[name])
                .items() if _kept(p)}
     got_kw = _keyword_only(port[name])
+    assert {p: got_kw.get(p, "<missing>") for p in want_kw} == want_kw
+
+
+def _nested(rel: str, outer: str) -> dict[str, ast.arguments]:
+    """The functions defined directly in the body of ``outer``."""
+    tree = ast.parse((ROOT / rel).read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == outer)
+    return {n.name: n.args for n in fn.body
+            if isinstance(n, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("name", ["run_rounds_batch", "mixing_stack"])
+def test_trainer_twin_keeps_the_reference_signature(name):
+    """``Trainer.run_rounds_batch`` and ``Trainer.mixing_stack`` (defined
+    inside ``build_trainer``): positional parameters and defaults, and the
+    reference's keyword-only ones, keyword-only in the port with the same
+    defaults (``idx`` is the port's own)."""
+    want = _nested("repro/core/cdfl.py", "build_trainer")[name]
+    got = _nested("repro_torch/core/cdfl.py", "build_trainer")[name]
+    assert _positional(got)[:len(_positional(want))] == _positional(want)
+    want_kw = _keyword_only(want)
+    got_kw = _keyword_only(got)
     assert {p: got_kw.get(p, "<missing>") for p in want_kw} == want_kw
 
 
