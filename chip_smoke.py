@@ -104,7 +104,19 @@ seeds, a K=256 bf16 ring over gamma x seeds and a crashed K=256 ring over
 2 seeds, each with 2 variants against their single Sessions, the batch
 against the CPU's, its ms/round against the loop of its single runs in
 turns and a profiled batched round; and the CLI's ``--sweep`` with its
-``SWEEP_SMOKE ok``. Then the loaded libraries by digest; the kernel
+``SWEEP_SMOKE ok``. Then the transports and the redundancy-aware ingest:
+the ring at K=4 (the roll form, no kernel) against the CPU and against the
+dense transport on the ring, and at K=256 with a bf16 wire in turns with
+dense; gossip with snapshots 2 rounds old, dense at K=4 (B2), on the
+K=1024 Manhattan sparse bf16 fleet (B6, in turns with the dense
+transport's B5; at K=64 against the CPU) and on the crashed K=256 ring
+(B2), ``staleness=0`` bit for bit the dense transport, a Session resumed
+with its bf16 snapshots bit for bit, the CLI's gossip ``--sweep``; ingest
+on the paper K=4 MLP (duplicate-heavy, sampling and mixing, drift; the
+card's weighted indices and sketches equal to the CPU's) and on the
+K=1024 sparse fleet (sensor overlap, B5), each in turns with its
+ingest-free run, with the ``IngestCallback`` line. Then the loaded
+libraries by digest; the kernel
 table (ten kernels, B1 and B2 also with their variant axis) as one JSON
 line; and the verdict as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
@@ -206,6 +218,15 @@ SWEEP_TOL = 1e-5              # of max |param|, batched against single
 SWEEP_BLOCKS, SWEEP_TURN = 2, 3   # ABBA: blocks of 4 turns of 3 rounds
 SWEEP_CRASH = dict(kinds=("crash",), seed=3)   # default rates
 B10_TOL = 2e-5                # B10 against its plain version, of max |value|
+# the transports and ingest phase: gossip snapshots 2 rounds old; timed
+# rounds of each fleet run; the paper MLP's duplicate-heavy ingest with
+# duplicate-corrected sampling, the eta reweight and drift detection on a
+# decayed count-min; the fleet's sensor-overlap ingest (eta reweight)
+GOSSIP_S = 2
+TI_ROUNDS = 5
+INGEST_K4 = dict(scenario="duplicate_heavy", weighting="both", decay=0.8,
+                 drift_threshold=0.3)
+INGEST_FLEET = dict(scenario="sensor_overlap")
 # bf16 rwkv6-7b, each block from the same input: B10 against its plain
 # version, of max |output| (two bf16 ulps at the top of a binade)
 RWKV_LAYER_TOL = 2.0 ** -6
@@ -1324,10 +1345,12 @@ def quickstart_and_resume(add, expect_counts, dense_only, loss, train, fed_k4,
 
 
 def check_resume(label, exp, data, items, add, expect_counts, dense_only,
-                 n_items=None) -> None:
+                 n_items=None, expect=None) -> None:
     """run(10) + save + resume in a fresh Session + run(10) against a
     straight run(20) of ``exp`` on the card, bit for bit: params, Adam
-    moments and step counters, and every metric."""
+    moments and step counters, the transport's snapshots and the ingest
+    sketches when the run keeps them, and every metric. ``expect``: the
+    launches of the three runs (default: the dense exchange's B1)."""
     ckpt = ROOT / "build" / "chip_smoke_checkpoint"
     shutil.rmtree(ckpt, ignore_errors=True)
     steps = 20 * exp.fed.local_steps
@@ -1339,7 +1362,7 @@ def check_resume(label, exp, data, items, add, expect_counts, dense_only,
     resumed = exp.compile(data, items, n_items=n_items).resume(str(ckpt))
     part2 = resumed.run(10)
     counts = read_counts()
-    expect_counts(f"resume {label}", counts, {
+    expect_counts(f"resume {label}", counts, expect or {
         "flat_mix": 40, "flat_consensus": 0, "cnd_bitmaps": 3,
         "cnd_popcount": 3, **dense_only})
     add(counts)
@@ -1348,6 +1371,13 @@ def check_resume(label, exp, data, items, add, expect_counts, dense_only,
              ("m", straight.state.opt.m, part2.state.opt.m),
              ("v", straight.state.opt.v, part2.state.opt.v),
              ("step", straight.state.opt.step, part2.state.opt.step)]
+    if isinstance(straight.state.tstate, torch.Tensor):
+        pairs.append(("snapshots", straight.state.tstate,
+                      part2.state.tstate))
+    for name, a in getattr(straight.state.istate, "_asdict",
+                           dict)().items():
+        pairs.append((f"sketch {name}", a, getattr(part2.state.istate,
+                                                   name)))
     pairs += [(f"metrics {n}", v, torch.cat([part1.metrics[n],
                                              part2.metrics[n]]))
               for n, v in straight.metrics.items()]
@@ -2100,6 +2130,412 @@ def batched_sweeps(dev, add, expect_counts, dense_only, fleet, fleet_feds,
           f"losses (V, R, K)={tuple(losses.shape)} launches={counts} "
           f"{verdict[0]}", flush=True)
     print(f"phase batched sweeps {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+def transports_and_ingest(dev, add, expect_counts, dense_only, loss, train,
+                          p0, fleet, fleet_feds, data_by_k) -> None:
+    """The ring and gossip transports and the redundancy-aware ingest on the
+    card, each path's launches counted and held against the port's CPU run
+    within 1e-4: the ring at K=4 (no kernel: the roll form) against the
+    CPU and against the dense transport (B1) on the ring, and at K=256
+    with a bf16 wire against dense in turns; gossip with snapshots 2
+    rounds old: dense at K=4 (B2), the K=1024 Manhattan sparse bf16 fleet
+    (B6, timed in turns against the dense transport's B5; at K=64 against
+    the CPU) and the crashed K=256 ring (B2 through the fault payloads);
+    ``staleness=0`` bit for bit the dense transport (K=4 B1, K=64 sparse
+    B5); a Session resumed with its bf16 snapshots; the training CLI's
+    gossip ``--sweep``; ingest on the paper K=4 MLP (duplicate_heavy,
+    sampling and mixing, drift; the card's weighted indices equal to the
+    CPU's, its sketches bit for bit) and on the K=1024 sparse fleet
+    (sensor_overlap, B5), each timed in turns against the ingest-free run,
+    with the ``IngestCallback`` line."""
+    from repro_torch import experiment
+    from repro_torch.configs.base import FaultConfig, FedConfig, IngestConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.core import cdfl
+    from repro_torch.core.cdfl import round_slice
+    from repro_torch.ingest import weighting
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import simple
+
+    t_phase = time.perf_counter()
+    idle = {"flat_mix": 0, "flat_consensus": 0, **dense_only}
+    data4, items4 = data_by_k[4]
+    data64, items64 = data_by_k[64]
+    data256, items256 = data_by_k[256]
+    data1024, items1024 = data_by_k[FLEET_K]
+
+    def inputs(fed, rounds, n, seed):
+        """(R, K, S, B) batch indices, or the uniforms that
+        duplicate-corrected ingest sampling maps to indices."""
+        shape = (rounds, fed.num_nodes, fed.local_steps, train.batch_size)
+        gen = torch.Generator().manual_seed(seed)
+        ing = fed.ingest
+        if ing is not None and ing.active and ing.correct_sampling:
+            return torch.rand(shape, generator=gen)
+        return torch.randint(0, n, shape, generator=gen)
+
+    def on_card(fed, rounds, seed, data, items, label, expect,
+                stacks=None):
+        """One warm-up round, then ``rounds`` rounds on the card with the
+        launch counts zeroed before and checked after. Returns (trainer,
+        state, metrics, counts, ms/round, inputs of all rounds)."""
+        idx = inputs(fed, rounds + 1, data["x"].shape[1], seed)
+
+        def kw(lo, hi):
+            return {} if stacks is None else dict(
+                eta_stack=round_slice(stacks[0], slice(lo, hi)),
+                gamma_stack=stacks[1][lo:hi])
+
+        tr = cdfl.build_trainer(loss, fed, train)
+        d = {n: torch.as_tensor(v, device=dev) for n, v in data.items()}
+        state, _ = tr.run_rounds(tr.init(p0, items), d, 1, idx=idx[:1],
+                                 **kw(0, 1))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, metrics = tr.run_rounds(state, d, rounds, idx=idx[1:],
+                                       **kw(1, rounds + 1))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / rounds
+        counts = read_counts()
+        expect_counts(label, counts, {**idle, "cnd_bitmaps": 0,
+                                      "cnd_popcount": 0, **expect})
+        add(counts)
+        if not torch.isfinite(metrics["loss"]).all():
+            fail(f"{label}: non-finite loss")
+        return tr, final, metrics, counts, ms, idx
+
+    def against_cpu(label, fed, data, items, idx, card):
+        """The same rounds on the CPU from the same init and inputs: max
+        |param diff| <= 1e-4, gossip snapshots too; ingest sketches bit
+        for bit."""
+        tr = cdfl.build_trainer(loss, fed, train, device="cpu")
+        final, metrics = tr.run_rounds(tr.init(p0, items), data,
+                                       idx.shape[0], idx=idx)
+        diff = (card.buf.cpu() - final.buf).abs().max().item()
+        if isinstance(card.tstate, torch.Tensor):
+            diff = max(diff, (card.tstate.cpu().float()
+                              - final.tstate.float()).abs().max().item())
+        if not diff <= 1e-4:
+            fail(f"{label}: the card's run differs from the CPU's by "
+                 f"{diff:.3e} > 1e-4")
+        for name, a in getattr(card.istate, "_asdict", dict)().items():
+            if not torch.equal(a.cpu(), getattr(final.istate, name)):
+                fail(f"{label}: the card's sketch {name} differs from the "
+                     f"CPU's")
+        return diff, metrics
+
+    def runner(tr, state, data, seed, stacks=None):
+        """``run(n)``: n more rounds from where the last call left off,
+        batches drawn from a generator; with ``stacks`` every call reads
+        rounds [0, n) of the stacks (timing only)."""
+        box = [state]
+        gen = torch.Generator().manual_seed(seed)
+        d = {n: torch.as_tensor(v, device=dev) for n, v in data.items()}
+
+        def run(n: int) -> None:
+            kw = {} if stacks is None else dict(
+                eta_stack=round_slice(stacks[0], slice(0, n)),
+                gamma_stack=stacks[1][:n])
+            box[0], _ = tr.run_rounds(box[0], d, n, generator=gen, **kw)
+
+        return run
+
+    def turns(label, a, b, names, rounds=3):
+        """ms/round of runners ``a`` and ``b`` in turns (ABBA), then one
+        round of each under the profiler: wall, device busy, busy share,
+        the top kernels."""
+        a_ms, b_ms, a_all, b_all = paired_ms(a, b, blocks=2, rounds=rounds)
+        print(f"paired {label} ms/round (turns {names[0]}, {names[1]}, "
+              f"{names[1]}, {names[0]}, twice, {rounds} rounds a turn): "
+              f"{names[0]}={a_ms:.3f} {names[1]}={b_ms:.3f} "
+              f"ratio={a_ms / b_ms:.3f} turns {names[0]}="
+              f"{[round(t, 3) for t in a_all]} {names[1]}="
+              f"{[round(t, 3) for t in b_all]}", flush=True)
+        for name, run in zip(names, (a, b)):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(1)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            busy, n_dev = device_profile(prof)
+            busy_ms = sum(busy.values())
+            if busy_ms <= 0:
+                fail(f"profile {label} {name}: the round shows no device "
+                     f"time")
+            top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+            print(f"profile {label} {name} round: wall_ms={wall:.3f} "
+                  f"device_busy_ms={busy_ms:.3f} busy_share="
+                  f"{busy_ms / wall:.4f} device_events={n_dev} top="
+                  f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+
+    # -- 14a. the ring at K=4 (paper MLP), against the CPU and dense -------
+    fed4 = FedConfig(num_nodes=4, topology="ring", gamma=0.5, local_steps=10)
+    ring4 = dataclasses.replace(fed4, transport="ring")
+    tr_r, ring_fin, _, counts, ring_ms, idx = on_card(
+        ring4, 10, 41, data4, items4, "ring K=4", {})
+    d_cpu, _ = against_cpu("ring K=4", ring4, data4, items4, idx, ring_fin)
+    tr_d, dense_fin, _, _, dense_ms, _ = on_card(
+        fed4, 10, 41, data4, items4, "dense K=4", {"flat_mix": 10})
+    d_dense = (ring_fin.buf - dense_fin.buf).abs().max().item()
+    if not d_dense <= 1e-4:
+        fail(f"ring K=4: the ring transport differs from the dense one (B1) "
+             f"on the ring by {d_dense:.3e} > 1e-4")
+    print(f"path ring K=4 f32 10 rounds: launches={counts} (the roll form, "
+          f"no kernel) card-vs-cpu max|param diff|={d_cpu:.3e} ring-vs-dense"
+          f" (B1 on the ring topology) max|param diff|={d_dense:.3e} (<= "
+          f"1e-4) card ms/round ring={ring_ms:.3f} dense={dense_ms:.3f}",
+          flush=True)
+    turns("ring K=4 f32", runner(tr_r, ring_fin, data4, 42),
+          runner(tr_d, dense_fin, data4, 42), ("ring", "dense"))
+
+    # -- 14b. the ring at K=256, bf16 wire, against dense -----------------
+    fed256 = FedConfig(num_nodes=256, topology="ring", gamma=0.5,
+                       local_steps=10, wire_dtype="bf16")
+    ring256 = dataclasses.replace(fed256, transport="ring")
+    tr_r, ring_fin, _, counts, ring_ms, _ = on_card(
+        ring256, 3, 43, data256, items256, "ring K=256 bf16", {})
+    tr_d, dense_fin, _, _, dense_ms, _ = on_card(
+        fed256, 3, 43, data256, items256, "dense K=256 bf16",
+        {"flat_mix": 3})
+    rel = rel_diff(ring_fin.buf, dense_fin.buf)
+    print(f"path ring K=256 bf16 3 rounds: launches={counts} ring-vs-dense "
+          f"(B1 on the ring topology) max|param diff|/max|param|={rel:.3e} "
+          f"(reported: a bf16 wire moves by whole bf16 steps between "
+          f"summation orders) card ms/round ring={ring_ms:.3f} dense="
+          f"{dense_ms:.3f}", flush=True)
+    turns("ring K=256 bf16", runner(tr_r, ring_fin, data256, 44),
+          runner(tr_d, dense_fin, data256, 44), ("ring", "dense"))
+    del tr_r, tr_d, ring_fin, dense_fin
+
+    # -- 14c. gossip, snapshots 2 rounds old: dense K=4 (B2) -------------
+    gossip4 = dataclasses.replace(fed4, transport="gossip",
+                                  staleness=GOSSIP_S)
+    _, g_fin, _, counts, g_ms, idx = on_card(
+        gossip4, 10, 45, data4, items4, "gossip K=4", {"flat_consensus": 10})
+    d_cpu, _ = against_cpu("gossip K=4", gossip4, data4, items4, idx, g_fin)
+    print(f"path gossip K=4 s={GOSSIP_S} f32 10 rounds: launches={counts} "
+          f"snapshots {tuple(g_fin.tstate.shape)} {g_fin.tstate.dtype} "
+          f"card-vs-cpu max|param and snapshot diff|={d_cpu:.3e} (<= 1e-4) "
+          f"card ms/round={g_ms:.3f}", flush=True)
+
+    # -- 14d. staleness=0 is the dense transport, bit for bit -------------
+    sparse64 = dataclasses.replace(fleet_feds["sparse"], num_nodes=64,
+                                   wire_dtype="f32")
+    for label, fed, data, items, kernel in (
+            ("K=4 dense", fed4, data4, items4, "flat_mix"),
+            ("K=64 sparse Manhattan", sparse64, data64, items64,
+             "sparse_mix")):
+        runs = [on_card(f, 3, 46, data, items, f"{label} {name}",
+                        {kernel: 3})
+                for name, f in (("gossip s=0", dataclasses.replace(
+                    fed, transport="gossip", staleness=0)),
+                    ("dense", fed))]
+        (_, a, ma, counts, _, _), (_, b, mb, _, _, _) = runs
+        if not (torch.equal(a.buf, b.buf) and torch.equal(a.opt.m, b.opt.m)
+                and all(torch.equal(ma[n], mb[n]) for n in mb)):
+            fail(f"gossip s=0 {label}: not bit for bit the dense transport "
+                 f"(max |buf diff| {(a.buf - b.buf).abs().max().item():.3e})")
+        print(f"check gossip s=0 {label} 3 rounds: params, Adam moments and "
+              f"metrics equal the dense transport's bit for bit; launches="
+              f"{counts}", flush=True)
+
+    # -- 14e. gossip on the K=1024 Manhattan sparse bf16 fleet (B6) -------
+    _, etas, gammas = fleet["sparse"]
+    gfleet = dataclasses.replace(fleet_feds["sparse"], transport="gossip",
+                                 staleness=GOSSIP_S)
+    tr_g, g_fin, g_met, counts, g_ms, _ = on_card(
+        gfleet, TI_ROUNDS, 47, data1024, items1024,
+        f"gossip fleet K={FLEET_K}", {"cluster_mix": TI_ROUNDS},
+        stacks=(etas, gammas))
+    tr_d, d_fin, _, _, d_ms, _ = on_card(
+        fleet_feds["sparse"], TI_ROUNDS, 47, data1024, items1024,
+        f"fleet sparse K={FLEET_K}", {"sparse_mix": TI_ROUNDS},
+        stacks=(etas, gammas))
+    snap = g_fin.tstate
+    print(f"path gossip fleet sparse K={FLEET_K} bf16 Manhattan s="
+          f"{GOSSIP_S}: launches={counts} snapshots {tuple(snap.shape)} "
+          f"{snap.dtype} {snap.numel() * snap.element_size()} bytes loss/"
+          f"round={[round(v, 4) for v in g_met['loss'].mean(dim=1).tolist()]}"
+          f" card ms/round gossip={g_ms:.3f} dense={d_ms:.3f}", flush=True)
+    turns(f"gossip fleet K={FLEET_K}", runner(tr_g, g_fin, data1024, 48,
+                                              (etas, gammas)),
+          runner(tr_d, d_fin, data1024, 48, (etas, gammas)),
+          ("gossip", "dense"), rounds=2)
+    del tr_g, tr_d, g_fin, d_fin, snap
+    g64 = dataclasses.replace(gfleet, num_nodes=64, wire_dtype="f32")
+    _, fin, _, counts, _, idx = on_card(g64, 3, 49, data64, items64,
+                                        "gossip fleet K=64",
+                                        {"cluster_mix": 3})
+    diff, _ = against_cpu("gossip fleet K=64", g64, data64, items64, idx,
+                          fin)
+    print(f"check gossip fleet sparse K=64 wire=f32 s={GOSSIP_S} 3 rounds "
+          f"card-vs-cpu max|param and snapshot diff|={diff:.3e} (<= 1e-4) "
+          f"launches={counts}", flush=True)
+
+    # -- 14f. gossip on the crashed K=256 ring (B2, fault payloads) -------
+    crash = FaultConfig(**SWEEP_CRASH)
+    gcrash = FedConfig(num_nodes=256, topology="ring", gamma=0.5,
+                       local_steps=10, transport="gossip",
+                       staleness=GOSSIP_S, faults=crash)
+    _, fin, met, counts, c_ms, _ = on_card(
+        gcrash, TI_ROUNDS, 50, data256, items256, "gossip crash K=256",
+        {"flat_consensus": TI_ROUNDS})
+    crashed = int((met["health"] == 0).sum().item())
+    print(f"path gossip crash K=256 ring s={GOSSIP_S}: crashed node-rounds="
+          f"{crashed} launches={counts} card ms/round={c_ms:.3f}",
+          flush=True)
+    g64 = dataclasses.replace(gcrash, num_nodes=64)
+    _, fin, met, counts, _, idx = on_card(g64, 3, 51, data64, items64,
+                                          "gossip crash K=64",
+                                          {"flat_consensus": 3})
+    diff, _ = against_cpu("gossip crash K=64", g64, data64, items64, idx, fin)
+    print(f"check gossip crash K=64 3 rounds card-vs-cpu max|param and "
+          f"snapshot diff|={diff:.3e} (<= 1e-4) crashed node-rounds="
+          f"{int((met['health'] == 0).sum().item())} launches={counts}",
+          flush=True)
+
+    # -- 14g. a Session resumed with its bf16 snapshots, bit for bit ------
+    gexp = experiment.Experiment.from_parts(
+        loss, lambda g: simple.mlp_init(g, MLP_CONFIG),
+        fed=dataclasses.replace(gossip4, wire_dtype="bf16"), train=train)
+    check_resume(f"gossip K=4 bf16 s={GOSSIP_S}", gexp, data4, items4, add,
+                 expect_counts, dense_only, expect={
+                     **idle, "flat_consensus": 40, "cnd_bitmaps": 3,
+                     "cnd_popcount": 3})
+
+    # -- 14h. the training CLI's gossip --sweep ---------------------------
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        _, losses = train_cli.main(["--quick", "--rounds", str(CLI_ROUNDS),
+                                    "--sweep", "seeds=2", "--transport",
+                                    "gossip", "--staleness", str(GOSSIP_S)])
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    counts = read_counts()
+    # B2 with a variant axis a round; B9 a layer, node row and local step:
+    # 2 variants x 4 nodes
+    expect_counts("train cli --sweep gossip", counts, {
+        "flat_mix": 0, "flat_consensus": CLI_ROUNDS,
+        "flat_consensus_variants": CLI_ROUNDS, "cnd_bitmaps": 2,
+        "cnd_popcount": 2, "flash_attention": CLI_ROUNDS * 4 * 8 * 2})
+    add(counts)
+    verdict = [ln for ln in lines if ln.startswith("SWEEP_SMOKE")]
+    if len(verdict) != 1 or not verdict[0].startswith("SWEEP_SMOKE ok "):
+        fail(f"train cli gossip --sweep: no 'SWEEP_SMOKE ok' line: "
+             f"{lines[-8:]}")
+    print(f"path train cli --sweep seeds=2 --transport gossip --staleness "
+          f"{GOSSIP_S}: losses (V, R, K)={tuple(losses.shape)} launches="
+          f"{counts} {verdict[0]}", flush=True)
+
+    # -- 14i. ingest on the paper K=4 MLP ---------------------------------
+    def recording(store):
+        """weighting.weighted_indices, its outputs kept on the host."""
+        real = weighting.weighted_indices
+
+        def fn(u, w):
+            out = real(u, w)
+            store.append(out.cpu())
+            return out
+
+        return unittest.mock.patch.object(weighting, "weighted_indices", fn)
+
+    ifed = dataclasses.replace(fed4, ingest=IngestConfig(**INGEST_K4))
+    exps = {d: experiment.Experiment.from_parts(
+        loss, lambda g: simple.mlp_init(g, MLP_CONFIG), fed=ifed,
+        train=train, device=d) for d in (None, "cpu")}
+    picked = {None: [], "cpu": []}
+    lines, results = [], {}
+    reset_counts()
+    for d, exp in exps.items():
+        with recording(picked[d]):
+            results[d] = exp.compile(data4, items4).run(
+                10, callbacks=[experiment.IngestCallback(lines.append)])
+        if d is None:
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect_counts("ingest K=4", counts, {
+                **idle, "flat_mix": 10, "cnd_bitmaps": 1,
+                "cnd_popcount": 1})
+            add(counts)
+    card, cpu = results[None], results["cpu"]
+    flips = sum(int((a != b).sum()) for a, b in zip(picked[None],
+                                                    picked["cpu"]))
+    n_picked = sum(a.numel() for a in picked[None])
+    if flips or len(picked[None]) != 10:
+        fail(f"ingest K=4: the card's weighted indices differ from the "
+             f"CPU's in {flips} of {n_picked}")
+    diff = (card.state.buf.cpu() - cpu.state.buf).abs().max().item()
+    if not diff <= 1e-4:
+        fail(f"ingest K=4: the card's run differs from the CPU's by "
+             f"{diff:.3e} > 1e-4")
+    for name, a in card.state.istate._asdict().items():
+        if not torch.equal(a.cpu(), getattr(cpu.state.istate, name)):
+            fail(f"ingest K=4: the card's sketch {name} differs from the "
+                 f"CPU's")
+    est_diff = rel_diff(card.metrics["est_distinct"].cpu(),
+                        cpu.metrics["est_distinct"])
+    drift = card.metrics["drift"].cpu()
+    if lines[0] != lines[1] or not torch.equal(drift, cpu.metrics["drift"]):
+        fail(f"ingest K=4: the card's IngestCallback line or drift differs "
+             f"from the CPU's: {lines}")
+    print(f"path ingest K=4 {INGEST_K4} 10 rounds (Session.run): launches="
+          f"{counts} weighted indices equal to the CPU's ({n_picked}, 0 "
+          f"flips) sketches (cm, hll, seen) bit for bit card-vs-cpu "
+          f"max|param diff|={diff:.3e} (<= 1e-4) est_distinct rel diff="
+          f"{est_diff:.3e} drift/round="
+          f"{[round(v, 3) for v in drift.mean(dim=1).tolist()]}", flush=True)
+    print(f"ingest callback K=4: {lines[0]}", flush=True)
+    free = experiment.Experiment.from_parts(
+        loss, lambda g: simple.mlp_init(g, MLP_CONFIG), fed=fed4,
+        train=train)
+    s_ing, s_free = (e.compile(data4, items4) for e in (exps[None], free))
+    s_ing.run(1)
+    s_free.run(1)                               # warm-up rounds
+    turns("ingest K=4", s_ing.run, s_free.run, ("ingest", "free"))
+    del s_ing, s_free
+
+    # -- 14j. ingest on the K=1024 sparse fleet (sensor_overlap, B5) ------
+    ifleet = dataclasses.replace(fleet_feds["sparse"],
+                                 ingest=IngestConfig(**INGEST_FLEET))
+    tr_i, i_fin, i_met, counts, i_ms, _ = on_card(
+        ifleet, TI_ROUNDS, 52, data1024, items1024,
+        f"ingest fleet K={FLEET_K}", {"sparse_mix": TI_ROUNDS},
+        stacks=(etas, gammas))
+    lines = []
+    experiment.IngestCallback(lines.append).on_run_end(
+        None, experiment.RunResult(state=i_fin, metrics=i_met,
+                                   rounds=TI_ROUNDS, wall_time_s=0.0))
+    est = i_met["est_distinct"][-1]
+    print(f"path ingest fleet sparse K={FLEET_K} bf16 Manhattan "
+          f"{INGEST_FLEET}: launches={counts} est_distinct min="
+          f"{est.min().item():.1f} max={est.max().item():.1f} card ms/round="
+          f"{i_ms:.3f}", flush=True)
+    print(f"ingest callback fleet: {lines[0][:160]}", flush=True)
+    tr_d, d_fin, _, _, _, _ = on_card(
+        fleet_feds["sparse"], 1, 52, data1024, items1024,
+        f"fleet sparse K={FLEET_K}", {"sparse_mix": 1},
+        stacks=(etas, gammas))
+    turns(f"ingest fleet K={FLEET_K}", runner(tr_i, i_fin, data1024, 53,
+                                              (etas, gammas)),
+          runner(tr_d, d_fin, data1024, 53, (etas, gammas)),
+          ("ingest", "free"), rounds=2)
+    del tr_i, tr_d, i_fin, d_fin
+    i64 = dataclasses.replace(ifleet, num_nodes=64, wire_dtype="f32")
+    _, fin, _, counts, _, idx = on_card(i64, 3, 54, data64, items64,
+                                        "ingest fleet K=64",
+                                        {"sparse_mix": 3})
+    diff, _ = against_cpu("ingest fleet K=64", i64, data64, items64, idx,
+                          fin)
+    print(f"check ingest fleet sparse K=64 wire=f32 3 rounds card-vs-cpu "
+          f"max|param diff|={diff:.3e} (<= 1e-4) sketches bit for bit "
+          f"launches={counts}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase transports and ingest {time.perf_counter() - t_phase:.1f}s",
           flush=True)
 
 
@@ -3692,6 +4128,11 @@ def main() -> None:
                    loss, train, {FLEET_K: (data1024, items1024),
                                  SWEEP_RING_K: (data256, items256),
                                  64: (data64, items64)})
+    transports_and_ingest(dev, add, expect_counts, dense_only, loss, train,
+                          p0, fleet, fleet_feds,
+                          {4: (data4, items4), 64: (data64, items64),
+                           256: (data256, items256),
+                           FLEET_K: (data1024, items1024)})
 
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
     rwkv_serving(dev, rows, record, add, expect_counts)

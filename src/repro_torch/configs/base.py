@@ -159,7 +159,7 @@ class FedConfig:
     faults: Optional[Any] = None
     robust: Optional[str] = None
     trim: int = 1                    # values trimmed per tail (trimmed_mean)
-    ingest: Optional[Any] = None
+    ingest: Optional["IngestConfig"] = None
 
     def __post_init__(self):
         from repro_torch.registry import validate_fed_config
@@ -262,6 +262,112 @@ class HierarchyConfig:
     def __post_init__(self):
         from repro_torch.registry import validate_hierarchy_config
         validate_hierarchy_config(self)
+
+
+@dataclass(frozen=True)
+class IngestConfig:
+    """Streaming-redundancy ingest scenario and its sketch/weighting knobs
+    (:mod:`repro_torch.ingest`).
+
+    ``scenario`` selects a registered redundancy generator that compiles on
+    the host into per-node item streams, once per run. Per-node rolling
+    count-min and HyperLogLog sketches then estimate effective cardinality
+    and per-item multiplicity on the stream, one round at a time, and
+    ``weighting`` selects what the estimates drive: redundancy-aware mixing
+    weights, duplicate-corrected sampling, both, or telemetry only.
+    ``scenario="none"`` disables the subsystem (identical to
+    ``FedConfig(ingest=None)``).
+    """
+
+    scenario: str = "none"           # registered redundancy scenario name
+    # nodes the scenario rewrites; () -> the scenario's default set
+    affected: Tuple[int, ...] = ()
+    duplicate_fraction: float = 0.8  # duplicate_heavy: copied-slot fraction
+    overlap_window: int = 32         # sensor_overlap: shared sliding window
+    zipf_alpha: float = 1.1          # skewed_multiset: frequency exponent
+    seed: int = 0                    # scenario RNG seed (per-name decorrelated)
+    # --- streaming sketch shapes ---------------------------------------------
+    cm_hashes: int = 4               # count-min hash rows H
+    cm_width: int = 1024             # count-min buckets per row W
+    hll_registers: int = 256         # HLL registers M (power of two >= 16)
+    decay: float = 1.0               # per-round count-min aging (1 = off)
+    # --- what the estimates drive --------------------------------------------
+    weighting: str = "mixing"        # none | mixing | sampling | both
+    # mixing reweight dead-band: eta is rescaled only when the max/min
+    # spread of the per-node distinct estimates exceeds this
+    spread_gate: float = 1.5
+    # --- drift detection on the rolling sketch -------------------------------
+    # a node whose sampled slots are mostly absent from its decayed
+    # count-min has its eta columns discounted ("reweight") or zeroed
+    # ("reset") for that round; 0 disables
+    drift_threshold: float = 0.0     # novel-slot fraction trigger (0 = off)
+    drift_mode: str = "reweight"     # reweight | reset
+    drift_discount: float = 0.5      # column scale under "reweight"
+
+    def __post_init__(self):
+        from repro_torch.registry import validate_ingest_config
+        validate_ingest_config(self)
+        if self.weighting not in ("none", "mixing", "sampling", "both"):
+            raise ValueError(f"unknown weighting {self.weighting!r} "
+                             f"(choose from none | mixing | sampling | "
+                             f"both)")
+        if not 0.0 <= self.duplicate_fraction <= 1.0:
+            raise ValueError(f"duplicate_fraction must be in [0, 1], "
+                             f"got {self.duplicate_fraction}")
+        if self.cm_hashes < 1 or self.cm_width < 2:
+            raise ValueError(f"count-min needs >= 1 hash row and >= 2 "
+                             f"buckets, got H={self.cm_hashes} "
+                             f"W={self.cm_width}")
+        m = self.hll_registers
+        if m < 16 or m & (m - 1):
+            raise ValueError(f"hll_registers must be a power of two "
+                             f">= 16, got {m}")
+        if not 0.0 < self.decay <= 1.0:
+            raise ValueError(f"decay must be in (0, 1], got {self.decay}")
+        if self.spread_gate < 1.0:
+            raise ValueError(f"spread_gate must be >= 1, "
+                             f"got {self.spread_gate}")
+        if self.overlap_window < 1:
+            raise ValueError(f"overlap_window must be >= 1, "
+                             f"got {self.overlap_window}")
+        if self.zipf_alpha <= 0.0:
+            raise ValueError(f"zipf_alpha must be > 0, "
+                             f"got {self.zipf_alpha}")
+        if not 0.0 <= self.drift_threshold <= 1.0:
+            raise ValueError(f"drift_threshold must be in [0, 1], "
+                             f"got {self.drift_threshold}")
+        if self.drift_mode not in ("reweight", "reset"):
+            raise ValueError(f"unknown drift_mode {self.drift_mode!r} "
+                             f"(choose from reweight | reset)")
+        if not 0.0 <= self.drift_discount <= 1.0:
+            raise ValueError(f"drift_discount must be in [0, 1], "
+                             f"got {self.drift_discount}")
+        if self.drift_threshold > 0.0 and self.decay >= 1.0:
+            raise ValueError(
+                "drift detection needs a DECAYED count-min (decay < 1): "
+                "with decay=1 old regimes never age out, so every "
+                "sampled slot stays 'seen' and the novelty signal is "
+                "identically zero")
+        if any(i < 0 for i in self.affected):
+            raise ValueError(f"affected node indices must be >= 0, "
+                             f"got {self.affected}")
+
+    @property
+    def active(self) -> bool:
+        """Whether a redundancy scenario is selected at all."""
+        return self.scenario != "none"
+
+    @property
+    def reweight_mixing(self) -> bool:
+        return self.weighting in ("mixing", "both")
+
+    @property
+    def correct_sampling(self) -> bool:
+        return self.weighting in ("sampling", "both")
+
+    @property
+    def drift_on(self) -> bool:
+        return self.drift_threshold > 0.0
 
 
 @dataclass(frozen=True)

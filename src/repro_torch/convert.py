@@ -17,6 +17,7 @@ from repro_torch.core.cdfl import FedState
 from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
 from repro_torch.hierarchy.mixing import HierEta
+from repro_torch.ingest.sketches import SketchState
 from repro_torch.models import attention, rwkv, transformer
 from repro_torch.optim.adam import FlatAdamState
 
@@ -78,11 +79,14 @@ def params_from_numpy(tree, device=None):
 
 def state_from_numpy(state, device=None) -> FedState:
     """A JAX package ``FedState`` (read by field name: ``params``,
-    ``opt.step/m/v``, ``ratios``, ``sizes``, ``round``, ``fstate``) -> the
-    port's :class:`repro_torch.core.cdfl.FedState`. Only the stateless dense
-    transport is ported, so ``tstate`` must be empty. ``fstate``, the
-    straggle replay buffer of a faulted run, comes across as a (K, P) f32
-    buffer (or ``()`` when the run keeps none)."""
+    ``opt.step/m/v``, ``ratios``, ``sizes``, ``round``, ``tstate``,
+    ``fstate``, ``istate``) -> the port's
+    :class:`repro_torch.core.cdfl.FedState`. ``tstate``, the stale gossip
+    snapshots, comes across as an (s, K, P) tensor at the wire dtype;
+    ``fstate``, the straggle replay buffer of a faulted run, as a (K, P)
+    f32 buffer; ``istate``, the ingest sketches, as a
+    :class:`repro_torch.ingest.sketches.SketchState` (each ``()`` when the
+    run keeps none)."""
     dev = resolve_device(device)
     buf, layout = params_from_numpy(dict(state.params), dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -94,8 +98,19 @@ def state_from_numpy(state, device=None) -> FedState:
     if opt.m.shape != buf.shape or opt.v.shape != buf.shape:
         raise ValueError(f"moments {tuple(opt.m.shape)} do not match the "
                          f"params buffer {tuple(buf.shape)}")
-    if len(getattr(state, "tstate", ())):
-        raise ValueError("stateful transports are not ported yet")
+    tstate = getattr(state, "tstate", ())
+    if not isinstance(tstate, tuple):
+        tstate = tensor_from_numpy(tstate, dev)
+        if tstate.dim() != 3 or tstate.shape[1] != buf.shape[0]:
+            raise ValueError(f"gossip snapshots {tuple(tstate.shape)} are "
+                             f"not (s, K={buf.shape[0]}, columns)")
+    istate = getattr(state, "istate", ())
+    if len(istate):
+        istate = SketchState(
+            cm=torch.tensor(np.asarray(istate.cm), **f32),
+            hll=torch.tensor(np.asarray(istate.hll), dtype=torch.int32,
+                             device=dev),
+            seen=torch.tensor(np.asarray(istate.seen), **f32))
     fstate = getattr(state, "fstate", ())
     if not isinstance(fstate, tuple):
         fstate = torch.tensor(np.asarray(fstate), **f32)
@@ -105,8 +120,8 @@ def state_from_numpy(state, device=None) -> FedState:
                              f"{tuple(buf.shape)}")
     ratios = torch.tensor(np.asarray(state.ratios), **f32)
     sizes = torch.tensor(np.asarray(state.sizes), **f32)
-    return FedState(buf, layout, opt, ratios, sizes, int(state.round), (),
-                    fstate)
+    return FedState(buf, layout, opt, ratios, sizes, int(state.round), tstate,
+                    fstate, istate)
 
 
 def sparse_eta_from_numpy(sp, device=None) -> SparseEta:

@@ -7,7 +7,11 @@ One federated round =
      the fedavg server average (kernel B2). The weights come in three
      formats (``FedConfig.mixing_format``): dense ``(K, K)`` eta (kernel
      B1), sparse top-D :class:`topology.SparseEta` (kernel B5), or
-     two-tier :class:`hierarchy.mixing.HierEta` (kernels B6 and B5);
+     two-tier :class:`hierarchy.mixing.HierEta` (kernels B6 and B5). The
+     transport (``FedConfig.transport``) is dense, the ring's two shifted
+     copies (plain tensor ops), or bounded-delay gossip, whose neighbor
+     terms read a snapshot ``staleness`` rounds old carried in
+     ``FedState.tstate`` (kernel B2 dense, B6 sparse);
   2. ``local_steps`` flat-Adam updates (eq. 8) on minibatches gathered on
      the device from the resident datasets.
 
@@ -42,6 +46,15 @@ coordinate-wise trimmed mean or median over the neighbor payloads (kernel
 B7). A round's fault handling gates on device tensors, never on a host
 read.
 
+Redundancy-aware ingest (``FedConfig.ingest``) gathers the datasets through
+a redundancy scenario's slot map once per run and streams every round's
+sampled slots into per-node count-min and HyperLogLog sketches carried in
+``FedState.istate`` (:mod:`repro_torch.ingest`). In the reference's order,
+a round reads the entry sketch's multiplicities, draws duplicate-corrected
+indices from its uniforms (``correct_sampling``), measures the drift
+novelty, folds the indices into the sketches and rescales eta's columns by
+the distinct-count estimates and the drift discount, before the exchange.
+
 ``Trainer.run_rounds_batch`` runs V whole runs at once (the batched fleet
 sweeps): a ``(V,)``-stacked state (:func:`stack_states`), the datasets
 shared, per-variant batch indices, mixing stacks, step sizes and learning
@@ -49,10 +62,8 @@ rates. The V variants' ``(K, P)`` buffers and Adam moments form one ``(V·K,
 P)`` buffer, so the forward, the backward and Adam run over V·K node rows in
 the launches of one run, and each exchange is one launch for all V: B1 or
 B2 with a variant axis (dense), B6 on the ``(V·K, P)`` rows (sparse). B7,
-which has no variant axis, runs once a variant.
-
-``build_trainer`` refuses what the port does not run yet (see
-:data:`repro_torch.registry.NOT_PORTED`).
+which has no variant axis, runs once a variant. Gossip snapshots and
+sketches gain the variant axis too.
 """
 from __future__ import annotations
 
@@ -69,6 +80,9 @@ from repro_torch.core import transport as transport_lib
 from repro_torch.device import resolve_device
 from repro_torch.faults import robust as robust_lib
 from repro_torch.hierarchy import mixing as hier_lib
+from repro_torch.ingest import scenarios as ingest_scenarios
+from repro_torch.ingest import sketches as ingest_sketches
+from repro_torch.ingest import weighting as ingest_weighting
 from repro_torch.kernels import ops
 from repro_torch.optim.adam import FlatAdamState, flat_adam
 
@@ -80,10 +94,15 @@ class FedState(NamedTuple):
     ratios: torch.Tensor          # (K,) CND distinct ratios Ë_k
     sizes: torch.Tensor           # (K,) raw dataset sizes E_k
     round: int
-    tstate: Any = ()              # transport state
+    # transport state: the (s, K, P) encoded snapshots of stale gossip,
+    # else ()
+    tstate: Any = ()
     # (K, P) straggle replay buffer (what each node broadcast the round
     # before) when the fault config can straggle, else ()
     fstate: Any = ()
+    # the per-node streaming sketches (ingest.sketches.SketchState) when a
+    # redundancy scenario is active, else ()
+    istate: Any = ()
 
     @property
     def params(self) -> dict:
@@ -106,39 +125,49 @@ class Trainer(NamedTuple):
     run_rounds_batch: Callable
 
 
+def _stack(values):
+    """One tensor of stacked tensors, a NamedTuple of them stacked field by
+    field, or () for empty states."""
+    first = values[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(values)
+    if not len(first):
+        return ()
+    return type(first)(*(_stack(list(f)) for f in zip(*values)))
+
+
+def _select(tree, i: int):
+    """Entry ``i`` of the leading axis of a tensor or of every tensor of a
+    NamedTuple; () stays ()."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return type(tree)(*(_select(f, i) for f in tree)) if len(tree) else ()
+
+
 def stack_states(states) -> FedState:
     """V single-run states of one trainer -> the ``(V,)``-stacked state
     :func:`Trainer.run_rounds_batch` takes: every tensor gains a leading
     variant axis (copied), the round counter becomes a ``(V,)`` int64 CPU
     tensor."""
     states = list(states)
-    first = states[0]
-    if any(len(s.tstate) for s in states):
-        raise ValueError("stateful transports are not ported yet")
-
-    def stack(tensors):
-        return torch.stack(list(tensors))
-
-    fstate = (stack(s.fstate for s in states)
-              if isinstance(first.fstate, torch.Tensor) else ())
     return FedState(
-        stack(s.buf for s in states), first.layout,
-        FlatAdamState(*(stack(f) for f in zip(*(s.opt for s in states)))),
-        stack(s.ratios for s in states), stack(s.sizes for s in states),
+        _stack([s.buf for s in states]), states[0].layout,
+        _stack([s.opt for s in states]), _stack([s.ratios for s in states]),
+        _stack([s.sizes for s in states]),
         torch.tensor([int(s.round) for s in states], dtype=torch.int64),
-        (), fstate)
+        _stack([s.tstate for s in states]),
+        _stack([s.fstate for s in states]),
+        _stack([s.istate for s in states]))
 
 
 def select_state(states: FedState, i: int) -> FedState:
     """Variant ``i`` of a ``(V,)``-stacked state, as a single-run state
     (views of the stacked tensors)."""
-    fstate = (states.fstate[i] if isinstance(states.fstate, torch.Tensor)
-              else states.fstate)
-    return FedState(states.buf[i], states.layout,
-                    FlatAdamState(*(f[i] for f in states.opt)),
+    return FedState(states.buf[i], states.layout, _select(states.opt, i),
                     states.ratios[i], states.sizes[i],
-                    int(torch.as_tensor(states.round)[i]), states.tstate,
-                    fstate)
+                    int(torch.as_tensor(states.round)[i]),
+                    _select(states.tstate, i), _select(states.fstate, i),
+                    _select(states.istate, i))
 
 
 def round_slice(stack, r):
@@ -169,21 +198,6 @@ def _node_sketches(node_items: torch.Tensor, fed: FedConfig):
                         device=node_items.device)
     ratios = torch.clamp(ests / torch.clamp_min(totals, 1.0), 1e-6, 1.0)
     return ratios, totals
-
-
-def _refuse_unported(fed: FedConfig) -> None:
-    for name in ("ingest",):
-        if getattr(fed, name) is not None:
-            raise NotImplementedError(
-                f"FedConfig.{name} is not ported to repro_torch yet: "
-                f"{registry.NOT_PORTED[(name, None)]}")
-    for name in ("algorithm", "transport", "mixing_format"):
-        value = getattr(fed, name)
-        item = registry.NOT_PORTED.get((name, value))
-        if item is not None:
-            raise NotImplementedError(
-                f"FedConfig.{name}={value!r} is not ported to repro_torch "
-                f"yet: {item}")
 
 
 def _freeze_rows(new, old, keep: torch.Tensor):
@@ -218,7 +232,6 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
             f"(fedavg: server average; dpsgd: per-step f32 gossip) "
             f"— got transport={fed.transport}/{fed.wire_dtype}/"
             f"staleness={fed.staleness}")
-    _refuse_unported(fed)
     k = fed.num_nodes
     fedavg = fed.algorithm == "fedavg"
     dpsgd = fed.algorithm == "dpsgd"
@@ -267,6 +280,26 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 "robust aggregation needs every neighbor row "
                 "materialized: use the dense transport "
                 f"(got {type(transport).__name__})")
+    # redundancy-aware ingest: scenario="none" (or ingest=None) builds the
+    # exact ingest-free trainer (bit-identical runs)
+    ingest_cfg = fed.ingest
+    ingest_on = ingest_cfg is not None and ingest_cfg.active
+    sampling_u = ingest_on and ingest_cfg.correct_sampling
+    if ingest_on and (ingest_cfg.reweight_mixing or ingest_cfg.drift_on):
+        # the redundancy reweight and the drift discount both rescale eta
+        if fedavg:
+            raise ValueError(
+                "fedavg (centralized server average) has no eta rows "
+                "for the redundancy reweight / drift discount to scale; "
+                "use IngestConfig(weighting='sampling', "
+                "drift_threshold=0) or a decentralized algorithm")
+        if robust_fn is not None:
+            raise ValueError(
+                "robust aggregation ranks neighbor rows by order "
+                "statistics — the redundancy eta reweight / drift "
+                "discount does not compose with it (use IngestConfig("
+                "weighting='sampling'|'none', drift_threshold=0))")
+    ingest_plans: dict = {}     # N -> (IngestPlan on the device, hashes)
     fopt = flat_adam(train.learning_rate, train.beta1, train.beta2,
                      train.eps, train.weight_decay, train.grad_clip)
 
@@ -298,8 +331,10 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 if cdfa_m else buf)
         # a round-0 straggler replays the init broadcast
         fstate = buf if has_straggle else ()
+        istate = (ingest_sketches.init_state(k, ingest_cfg, dev)
+                  if ingest_on else ())
         return FedState(buf, layout, fopt.init(buf), ratios, sizes, 0, tstate,
-                        fstate)
+                        fstate, istate)
 
     def eta_fn(state: FedState):
         """The static graph's weights in the config's format: dense
@@ -363,11 +398,16 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 inter_degree=hier_cfg.inter_degree,
                 hysteresis=hier_cfg.hysteresis, **side)
         if sparse_fmt:
+            # ring+sparse is refused at config validation, so no mask
             return mobility_lib.sparse_scenario_stacks(
                 m, num_rounds, k, rule=spec.mixing, gamma_cap=cap,
                 degree=fed.degree, **side)
+        # the ring transport carries only ring links
+        mask = (topology.adjacency("ring", k) if isinstance(
+            transport, transport_lib.RingShardTransport) else None)
         return mobility_lib.scenario_stacks(
-            m, num_rounds, k, rule=spec.mixing, gamma_cap=cap, **side)
+            m, num_rounds, k, rule=spec.mixing, gamma_cap=cap, mask=mask,
+            **side)
 
     def explicit_stacks(eta_stack, gamma_stack):
         """A caller's per-round stacks on the device, with gammas derived
@@ -560,6 +600,11 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 "FedConfig.faults is set but Trainer.round drives one "
                 "round at a time — fault schedules (and the in-scan "
                 "self-healing guard) ride the run_rounds scan")
+        if ingest_on:
+            raise ValueError(
+                "FedConfig.ingest is set but Trainer.round drives one "
+                "round at a time — the streaming-redundancy sketches "
+                "ride the run_rounds scan")
         batches = {name: torch.as_tensor(v) for name, v in batches.items()}
         steps, size = fed.local_steps, train.batch_size
         for name, v in batches.items():
@@ -591,9 +636,13 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         generator seeded with ``train.seed + 1``): uniform over the
         resident items, or over each node's ``n_items`` as the JAX package
         draws them (a uniform ``u`` maps to ``min(floor(u * n_k), n_k -
-        1)``)."""
+        1)``). Under duplicate-corrected ingest sampling, the f32 uniforms
+        themselves: each round maps them through its sketch's weights."""
         if generator is None:
             generator = torch.Generator().manual_seed(train.seed + 1)
+        if sampling_u:
+            return torch.rand(shape, generator=generator,
+                              device=generator.device)
         if n_items is None:
             return torch.randint(0, max_items, shape, generator=generator,
                                  device=generator.device)
@@ -603,11 +652,19 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
 
     def checked_indices(idx, shape, max_items: int, n_items):
         """A caller's (..., K, S, B) batch indices, checked against
-        ``shape``, the resident items and ``n_items``, on the device."""
+        ``shape``, the resident items and ``n_items``, on the device; under
+        duplicate-corrected ingest sampling, uniforms in [0, 1), as f32."""
         idx = torch.as_tensor(idx)
         if tuple(idx.shape) != shape:
             raise ValueError(f"batch index stack {tuple(idx.shape)} != "
                              f"{shape}")
+        if sampling_u:
+            if (not idx.is_floating_point() or float(idx.min()) < 0.0
+                    or float(idx.max()) >= 1.0):
+                raise ValueError(
+                    "duplicate-corrected ingest sampling takes uniforms "
+                    "in [0, 1) in place of batch indices")
+            return idx.to(device=dev, dtype=torch.float32)
         if int(idx.min()) < 0 or int(idx.max()) >= max_items:
             raise ValueError(f"batch indices must lie in [0, {max_items})")
         if n_items is not None:
@@ -618,6 +675,54 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                     f"batch indices of node {node} must lie in "
                     f"[0, {int(n_items[node])}), its item count")
         return idx.to(device=dev, dtype=torch.int64)
+
+    def ingest_inputs(data: dict, max_items: int):
+        """The datasets gathered through the redundancy scenario's slot
+        map, and the slots' sketch coordinates. Both are deterministic in
+        (config, K, N), so resumed segments rebuild the same streams; the
+        plan and the hashes are cached per N, a segment pays the gather."""
+        if max_items not in ingest_plans:
+            plan = ingest_scenarios.compile_plan(ingest_cfg, k, max_items)
+            plan = ingest_scenarios.IngestPlan(*(
+                torch.as_tensor(a, device=dev).long() for a in plan))
+            ingest_plans[max_items] = (plan, ingest_sketches.slot_hashes(
+                plan.item_ids, ingest_cfg))
+        plan, hashes = ingest_plans[max_items]
+        return ingest_scenarios.apply_plan(data, plan), hashes
+
+    def ingest_round(ist, hashes, idx_r, eta_r, n_items, max_items: int):
+        """One round of the streaming sketches, in the reference's order:
+        the ENTRY sketch's multiplicities give the duplicate-corrected
+        indices of this round's uniforms and the drift novelty (gated on
+        the sketch having streamed anything, so the empty round-0
+        counters read as no drift), the final indices fold into the
+        sketches, and the new distinct estimates reweight eta's columns,
+        then the drift discount scales them. Returns (indices, eta,
+        sketches, estimates, novelty or None)."""
+        mult = novelty = None
+        if ingest_cfg.correct_sampling:
+            mult = ingest_sketches.multiplicity(ist.cm, hashes.buckets)
+            w = ingest_weighting.sampling_weights(mult, n_items, max_items)
+            idx_r = ingest_weighting.weighted_indices(idx_r, w)
+        if ingest_cfg.drift_on:
+            if mult is None:
+                mult = ingest_sketches.multiplicity(ist.cm, hashes.buckets)
+            novelty = torch.where(
+                ist.seen > 0, ingest_weighting.drift_novelty(mult, idx_r),
+                0.0)
+        ist = ingest_sketches.update(ist, hashes, idx_r,
+                                     decay=ingest_cfg.decay)
+        est = ingest_sketches.hll_cardinality(ist.hll)
+        if ingest_cfg.reweight_mixing:
+            eta_r = ingest_weighting.reweight_eta(eta_r, est,
+                                                  ingest_cfg.spread_gate)
+        if ingest_cfg.drift_on:
+            disc = (0.0 if ingest_cfg.drift_mode == "reset"
+                    else ingest_cfg.drift_discount)
+            scale = torch.where(novelty > ingest_cfg.drift_threshold, disc,
+                                1.0)
+            eta_r = ingest_weighting.scale_eta_columns(eta_r, scale)
+        return idx_r, eta_r, ist, est, novelty
 
     def run_rounds(state: FedState, data: dict, num_rounds: int,
                    idx=None, generator: Optional[torch.Generator] = None,
@@ -645,7 +750,14 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         and ``gamma`` (R,); under the hierarchical format also
         ``gamma_intra`` (R,) and ``clusters`` (R,); with ``eval_fn``,
         ``eval`` (R, K); under faults, ``health``, ``quarantined`` and
-        ``frozen`` (R, K)."""
+        ``frozen`` (R, K); under ingest, ``est_distinct`` (R, K) and with
+        drift detection ``drift`` (R, K).
+
+        Under duplicate-corrected ingest sampling (``IngestConfig.
+        weighting`` "sampling" or "both") ``idx`` holds (R, K, S, B) f32
+        uniforms in [0, 1) in place of indices (drawn from ``generator``
+        when omitted): round r maps them through its sketch's weights, as
+        the JAX package maps the uniforms it draws."""
         data = {name: torch.as_tensor(v, device=dev)
                 for name, v in data.items()}
         max_items = next(iter(data.values())).shape[1]
@@ -654,6 +766,9 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         if idx is None:
             idx = draw_indices(shape, generator, n_items, max_items)
         idx = checked_indices(idx, shape, max_items, n_items)
+        if ingest_on:
+            data, hashes = ingest_inputs(data, max_items)
+            n_dev = None if n_items is None else n_items.to(dev)
         if eta_stack is None:
             etas, gammas = mixing_stack(state, num_rounds, start=state.round)
             if gamma_stack is not None:
@@ -683,14 +798,21 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 (plan.health, plan.byz, plan.corrupt, plan.straggle))
         # every update below is out of place, so ``state`` stays as it was
         buf, opt, tstate = state.buf, state.opt, state.tstate
-        prev = state.fstate
+        prev, ist = state.fstate, state.istate
         if faulty and has_straggle and not isinstance(prev, torch.Tensor):
             prev = buf
         series = {name: [] for name in (
             "loss", "disagreement", "gamma_intra", "clusters", "eval",
-            "health", "quarantined", "frozen")}
+            "est_distinct", "drift", "health", "quarantined", "frozen")}
         for r in range(num_rounds):
             eta_r = round_slice(etas, r)
+            idx_r = idx[r]
+            if ingest_on:
+                idx_r, eta_r, ist, est, novelty = ingest_round(
+                    ist, hashes, idx_r, eta_r, n_dev, max_items)
+                series["est_distinct"].append(est)
+                if novelty is not None:
+                    series["drift"].append(novelty)
             sent = None
             if faulty:
                 # what each node puts on the wire this round: its fresh
@@ -718,7 +840,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 carry = [buf, opt]
                 del buf, opt
                 buf, opt, loss = local_steps(
-                    carry, state.layout, gathered(data, idx[r]),
+                    carry, state.layout, gathered(data, idx_r),
                     fed.local_steps,
                     mix=lambda b: gossip(b, eta_r, gammas[r]))
             else:
@@ -728,7 +850,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 carry = [buf, opt]
                 del buf, opt
                 buf, opt, loss = local_steps(
-                    carry, state.layout, gathered(data, idx[r]),
+                    carry, state.layout, gathered(data, idx_r),
                     fed.local_steps)
             series["loss"].append(loss)
             series["disagreement"].append(
@@ -761,7 +883,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         metrics = {name: torch.stack(v) for name, v in series.items() if v}
         metrics["gamma"] = gammas.clone()
         final = FedState(buf, state.layout, opt, state.ratios, state.sizes,
-                         state.round + num_rounds, tstate, prev)
+                         state.round + num_rounds, tstate, prev, ist)
         return final, metrics
 
     def variant_indices(rngs, v: int, shape, n_items, max_items: int):
@@ -876,12 +998,15 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
 
         ``loss_fn`` sees the V·K node rows at once (params and batch leaves
         ``(V·K, ...)``); ``eval_fn`` is called once a variant, on that
-        variant's ``(K, ...)`` views.
+        variant's ``(K, ...)`` views. Each variant streams its own ingest
+        sketches (``idx`` then holds (V, R, K, S, B) uniforms under
+        duplicate-corrected sampling, as in :func:`run_rounds`).
 
         Returns ``(final_states, metrics)``, every metric with a leading
         (V,) axis: ``loss`` (V, R, K), ``disagreement`` and ``gamma`` (V,
         R); with ``eval_fn`` ``eval`` (V, R, K); under faults ``health``,
-        ``quarantined`` and ``frozen`` (V, R, K)."""
+        ``quarantined`` and ``frozen`` (V, R, K); under ingest
+        ``est_distinct`` and with drift detection ``drift`` (V, R, K)."""
         if hier_cfg is not None:
             raise ValueError(
                 "batched execution does not support mixing_format="
@@ -912,6 +1037,9 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
         if idx is None:
             idx = variant_indices(rngs, v, shape, n_items, max_items)
         idx = checked_indices(idx, (v,) + shape, max_items, n_items)
+        if ingest_on:
+            data, hashes = ingest_inputs(data, max_items)
+            n_dev = None if n_items is None else n_items.to(dev)
         etas, gammas, shared = variant_stacks(states, num_rounds, start, v,
                                               eta_stacks, gamma_stacks)
         adam = fopt
@@ -937,15 +1065,22 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 (plan.health, plan.byz, plan.corrupt, plan.straggle))
         layout = states.layout
         buf, opt, tstate = states.buf, states.opt, states.tstate
-        prev = states.fstate
+        prev, ist = states.fstate, states.istate
         if faulty and has_straggle and not isinstance(prev, torch.Tensor):
             prev = buf
         series = {name: [] for name in (
-            "loss", "disagreement", "eval", "health", "quarantined",
-            "frozen")}
+            "loss", "disagreement", "eval", "est_distinct", "drift",
+            "health", "quarantined", "frozen")}
         for r in range(num_rounds):
             eta_r = round_slice(etas, r if shared else (slice(None), r))
             gamma_r = gammas[:, r]
+            idx_r = idx[:, r]
+            if ingest_on:
+                idx_r, eta_r, ist, est, novelty = ingest_round(
+                    ist, hashes, idx_r, eta_r, n_dev, max_items)
+                series["est_distinct"].append(est)
+                if novelty is not None:
+                    series["drift"].append(novelty)
             sent = None
             if faulty:
                 # each variant's wire, built and guarded as run_rounds
@@ -965,7 +1100,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 carry = [buf, opt]
                 del buf, opt
                 buf, opt, loss = local_steps(
-                    carry, layout, gathered(data, idx[:, r]),
+                    carry, layout, gathered(data, idx_r),
                     fed.local_steps,
                     mix=lambda b: gossip(b, eta_r, gamma_r), adam=adam)
             else:
@@ -974,7 +1109,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                 carry = [buf, opt]
                 del buf, opt
                 buf, opt, loss = local_steps(
-                    carry, layout, gathered(data, idx[:, r]),
+                    carry, layout, gathered(data, idx_r),
                     fed.local_steps, adam=adam)
             series["loss"].append(loss)
             series["disagreement"].append(
@@ -999,7 +1134,7 @@ def build_trainer(loss_fn: Callable, fed: FedConfig, train: TrainConfig,
                    for name, x in series.items() if x}
         metrics["gamma"] = gammas.clone()
         final = FedState(buf, layout, opt, states.ratios, states.sizes,
-                         rounds + num_rounds, tstate, prev)
+                         rounds + num_rounds, tstate, prev, ist)
         return final, metrics
 
     return Trainer(init=init, round=round_fn, eta_fn=eta_fn, mixing=mixing,

@@ -2,7 +2,9 @@
 
 Each data item is hashed by ``num_hashes`` independent integer hash
 functions into a bitmap of ``m`` bits; the number of distinct items is
-estimated from the set-bit counts.
+estimated from the set-bit counts. A SimHash-style signature (weighted
+feature bit votes, Alg. 1 lines 10-30) gives a compact record of the local
+data distribution.
 
 This module holds the plain formulation. PyTorch has no ``>>``, ``<<``,
 ``%`` or ``+`` for ``uint32`` on the CPU, so the hash runs in ``int64``
@@ -15,6 +17,8 @@ on the card); the trainer builds its bitmaps through
 bits as :func:`build_bitmaps`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -60,6 +64,16 @@ def hash_items(items: torch.Tensor, num_hashes: int, m: int) -> torch.Tensor:
     return torch.stack(rows, dim=-2).to(torch.int32)
 
 
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., m) {0,1} -> (..., m // 32) int32 words holding the uint32 bit
+    pattern (bit b of word w is bucket 32 * w + b; the lanes of a word are
+    disjoint, so OR == sum)."""
+    m = bits.shape[-1]
+    words = bits.to(torch.int64).reshape(bits.shape[:-1] + (m // 32, 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return _to_int32_bits((words << shifts).sum(dim=-1))
+
+
 def build_bitmaps(items: torch.Tensor, num_hashes: int = 3,
                   m: int = 8192) -> torch.Tensor:
     """Paper Alg. 1 lines 1-5: set Bitmap[hash(item)] = 1 per hash fn.
@@ -72,9 +86,26 @@ def build_bitmaps(items: torch.Tensor, num_hashes: int = 3,
     bits = torch.zeros(idx.shape[:-1] + (m,), dtype=torch.int64,
                        device=items.device)
     bits.scatter_(-1, idx, 1)
-    words = bits.reshape(idx.shape[:-1] + (m // 32, 32))
-    shifts = torch.arange(32, dtype=torch.int64, device=items.device)
-    return _to_int32_bits((words << shifts).sum(dim=-1))
+    return _pack_bits(bits)
+
+
+def build_bitmaps_onehot(items: torch.Tensor, num_hashes: int = 3,
+                         m: int = 8192,
+                         block_items: int = 256) -> torch.Tensor:
+    """Scatter-free bitmap build: each bitmap position is a compare and an
+    any-reduction over the items, ``block_items`` items at a time (the
+    formulation of the TPU kernel). The same bits as
+    :func:`build_bitmaps`."""
+    if m % 32:
+        raise ValueError(f"m must be a multiple of 32, got {m}")
+    idx = hash_items(items, num_hashes, m)                   # (..., H, n)
+    positions = torch.arange(m, dtype=torch.int32, device=items.device)
+    bits = torch.zeros(idx.shape[:-1] + (m,), dtype=torch.bool,
+                       device=items.device)
+    for start in range(0, idx.shape[-1], block_items):
+        chunk = idx[..., start:start + block_items]
+        bits |= (chunk[..., None] == positions).any(dim=-2)
+    return _pack_bits(bits)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +153,62 @@ def cardinality(bitmaps: torch.Tensor,
     return torch.minimum((-m * torch.log(z / m)).sum(dim=-1) * inv_h, cap)
 
 
+def union_cardinality(bm_a: torch.Tensor, bm_b: torch.Tensor,
+                      estimator: str = "paper_mean") -> torch.Tensor:
+    """|A ∪ B| from the OR of the bitmaps: how much of a neighbor's data is
+    new to a node (paper Sec. 4.3)."""
+    return cardinality(bm_a | bm_b, estimator)
+
+
+def difference_estimate(bm_self: torch.Tensor, bm_other: torch.Tensor,
+                        estimator: str = "paper_mean") -> torch.Tensor:
+    """Estimated count of the neighbor's items NOT present locally:
+    |A ∪ B| − |A| ≈ |B \\ A|."""
+    return (union_cardinality(bm_self, bm_other, estimator)
+            - cardinality(bm_self, estimator))
+
+
+def simhash(features: torch.Tensor, weights: torch.Tensor | None = None,
+            n_bits: int = 64) -> torch.Tensor:
+    """Weighted SimHash over a set of feature tokens (Alg. 1 lines 10-30).
+
+    features: (n, f) int32 feature tokens; weights: (n, f) f32 feature
+    weights (default 1). Returns the (n_bits,) int32 {0, 1} signature: bit
+    j is set when the weighted votes of the features' hash bit j are
+    positive."""
+    feats = features.reshape(-1).to(torch.int64) & _MASK
+    if weights is None:
+        w = torch.ones(feats.shape, dtype=torch.float32,
+                       device=features.device)
+    else:
+        w = weights.reshape(-1).to(torch.float32)
+    shifts = torch.arange(32, dtype=torch.int64, device=features.device)
+    bits64 = torch.cat(
+        [(_mix32(feats, 7)[:, None] >> shifts) & 1,
+         (_mix32(feats, 11)[:, None] >> shifts) & 1],
+        dim=1)[:, :n_bits].to(torch.float32)                # (N, n_bits)
+    votes = ((2.0 * bits64 - 1.0) * w[:, None]).sum(dim=0)
+    return (votes > 0).to(torch.int32)
+
+
+def signature_distance(sig_a: torch.Tensor,
+                       sig_b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between signatures: distribution dissimilarity."""
+    return torch.sum(torch.abs(sig_a - sig_b))
+
+
+def sketch_dataset(items: torch.Tensor, num_hashes: int = 3, m: int = 8192,
+                   sig_bits: int = 64) -> dict:
+    """Full CND sketch of one node's (n, f) dataset: bitmaps, signature
+    and size."""
+    return {
+        "bitmaps": build_bitmaps(items, num_hashes, m),
+        "signature": simhash(items, n_bits=sig_bits),
+        "total": torch.tensor(items.shape[0], dtype=torch.int32,
+                              device=items.device),
+    }
+
+
 def distinct_ratio(sketch: dict,
                    estimator: str = "paper_mean") -> torch.Tensor:
     """Ë_k = E_k' / E_k (paper eq. 7): estimated distinct / total, from a
@@ -132,3 +219,7 @@ def distinct_ratio(sketch: dict,
         1.0)
     return torch.clamp(est / total, 0.0, 1.0)
 
+
+def expected_load_factor(n_distinct: int, m: int) -> float:
+    """E[set bits] / m for n distinct balls in m bins (analysis helper)."""
+    return 1.0 - math.exp(-n_distinct / m)

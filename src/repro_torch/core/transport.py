@@ -1,15 +1,34 @@
 """Consensus transport — how the flat ``(K, P)`` buffer moves.
 
+    state        = transport.init_state(buf)
     buf', state' = transport.exchange(buf, eta, gamma, state, rnd)
+
+Transports are ``fed -> Transport`` factories in
+:data:`repro_torch.registry.transports`, and :func:`make_transport` is that
+lookup. The built-ins:
+
+* :class:`DenseTransport` — the fused ``(K, K) @ (K, P)`` mix (kernel B1),
+  or the top-D gather (B5) under the sparse format.
+* :class:`RingShardTransport` — the exchange restricted to the ring
+  ``{k-1, k+1}``: two shifted copies of the wire buffer instead of a dense
+  product, in the reference's order of operations (plain tensor ops; the
+  reference computes it outside any kernel too).
+* :class:`GossipTransport` — bounded-delay exchange: the neighbor terms
+  read a snapshot of the wire buffer ``staleness`` rounds old, kept in a
+  circular buffer of encoded snapshots in the transport state (kernel B2
+  on the dense format, B6 on the sparse one). ``staleness=0`` is the dense
+  transport, bit for bit.
 
 What travels the wire is a :class:`WireCodec`: ``f32`` (identity) or
 ``bf16``, which halves the exchanged bytes; the delta-form mix keeps the
 wire precision on the neighbor differences, which vanish at consensus.
-On the card a bf16 wire is a real cast that kernels B1, B5 and B6 read
-as bf16.
-Transports are ``fed -> Transport`` factories in
-:data:`repro_torch.registry.transports`; only the dense transport is
-ported so far.
+On the card a bf16 wire is a real cast that kernels B1, B5 and B6 read as
+bf16. The port casts on every backend, so there is no switch that skips
+the cast on the CPU.
+
+A ``(V, K, P)`` buffer exchanges V variants at once (the batched sweeps):
+the ring rolls the node axis of every variant, and a gossip state holds
+``(V, s, K, P)`` snapshots.
 """
 from __future__ import annotations
 
@@ -22,6 +41,10 @@ from repro_torch.core import flatten
 from repro_torch.core.topology import SparseEta
 from repro_torch.registry import transports, wire_codecs
 
+
+# --------------------------------------------------------------------------
+# Wire codecs: the buffer's on-the-wire representation.
+# --------------------------------------------------------------------------
 
 class WireCodec:
     """f32 flat buffer <-> wire representation.
@@ -38,6 +61,10 @@ class WireCodec:
         raise NotImplementedError
 
     def decode(self, wire, dtype=torch.float32) -> torch.Tensor:
+        raise NotImplementedError
+
+    def wire_bytes(self, layout: flatten.FlatLayout) -> int:
+        """Bytes one node sends over one link per round."""
         raise NotImplementedError
 
     def roundtrip(self, buf: torch.Tensor) -> torch.Tensor:
@@ -62,24 +89,44 @@ class CastCodec(WireCodec):
     def decode(self, wire, dtype=torch.float32) -> torch.Tensor:
         return wire.to(dtype)
 
+    def wire_bytes(self, layout: flatten.FlatLayout) -> int:
+        return layout.padded * self.dtype.itemsize
+
 
 wire_codecs.register("f32", CastCodec("f32", torch.float32))
 wire_codecs.register("bf16", CastCodec("bf16", torch.bfloat16))
 
 
-@dataclasses.dataclass(frozen=True)
-class DenseTransport:
-    """Fused dense exchange: every node mixes every neighbor in one
-    ``(K, K) @ (K, P)`` operation (the eta matrix encodes the topology)."""
+def wire_codec(name: str) -> WireCodec:
+    """Look up a registered :class:`WireCodec` (listing names on a miss)."""
+    return wire_codecs.get(name)
+
+
+# --------------------------------------------------------------------------
+# Transports.
+# --------------------------------------------------------------------------
+
+class _FlatTransport:
+    """Shared transport behavior: one full wire-codec payload per link per
+    round, and no state unless a subclass says otherwise."""
 
     wire_dtype: str = "f32"
 
     @property
     def codec(self) -> WireCodec:
-        return wire_codecs.get(self.wire_dtype)
+        return wire_codec(self.wire_dtype)
+
+    @property
+    def stateful(self) -> bool:
+        """False: :meth:`init_state` returns ``()``."""
+        return False
 
     def init_state(self, buf: torch.Tensor) -> Any:
         return ()
+
+    def wire_bytes(self, layout: flatten.FlatLayout) -> int:
+        """Bytes one node sends over one link per round."""
+        return self.codec.wire_bytes(layout)
 
     def wire(self, buf: torch.Tensor) -> torch.Tensor | None:
         """What the mix kernels read as the exchanged buffer: ``None`` for
@@ -87,6 +134,46 @@ class DenseTransport:
         are pure casts; the kernels upcast it themselves)."""
         codec = self.codec
         return None if codec.cast_dtype == buf.dtype else codec.encode(buf)
+
+
+def _gamma(gamma, buf: torch.Tensor) -> torch.Tensor:
+    """The step size as a tensor that broadcasts over ``buf``: a scalar, or
+    (V, 1, 1) for a (V, K, P) buffer."""
+    g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+    return g.reshape(-1, 1, 1) if buf.dim() == 3 else g
+
+
+def _received_mix(buf, eta, gamma, w_nb, w_self):
+    """``buf + gamma * (eta @ w_nb - rowsum(eta) * w_self)`` with the
+    neighbor rows ``w_nb`` (f32) read through kernel B2; dense eta (K, K),
+    or for a (V, K, P) buffer (K, K) shared or (V, K, K)."""
+    eta32 = eta.to(buf.dtype)
+    row = eta32.sum(dim=-1)
+    mixed = flatten.apply_matrix_flat(w_nb.contiguous(), eta32)
+    return buf + _gamma(gamma, buf) * (mixed - row[..., None] * w_self)
+
+
+def _received_sparse(buf, eta: SparseEta, gamma, wire, wire_self):
+    """The sparse twin of :func:`_received_mix` through kernel B6: the
+    gathered rows read ``wire``, the self rescale ``wire_self`` (both at
+    the wire dtype, upcast by the kernel), the step size broadcast to
+    every node."""
+    if buf.dim() == 3:
+        return flatten.sparse_mix_variants(buf, eta.idx, eta.val, gamma,
+                                           wire=wire, wire_self=wire_self)
+    g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
+    gamma_node = g.reshape(1).expand(buf.shape[0]).contiguous()
+    return flatten.cluster_mix_flat(buf, eta.idx, eta.val, gamma_node,
+                                    wire=wire.contiguous(),
+                                    wire_self=wire_self.contiguous())
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTransport(_FlatTransport):
+    """Fused dense exchange: every node mixes every neighbor in one
+    ``(K, K) @ (K, P)`` operation (the eta matrix encodes the topology)."""
+
+    wire_dtype: str = "f32"
 
     def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
         """Eq. 5 on ``buf`` with dense (K, K) weights or a
@@ -103,10 +190,9 @@ class DenseTransport:
         launch, sparse tables (K, D) or (V, K, D) through one B6 launch on
         the (V·K, P) rows, gamma (V,)."""
         sparse = isinstance(eta, SparseEta)
-        batched = buf.dim() == 3
         if sent is None:
             wire = self.wire(buf)
-            if sparse and batched:
+            if sparse and buf.dim() == 3:
                 out = flatten.sparse_mix_variants(buf, eta.idx, eta.val,
                                                   gamma, wire=wire)
             elif sparse:
@@ -116,36 +202,130 @@ class DenseTransport:
                 out = flatten.mix_flat(buf, eta, gamma, wire=wire)
             return out, state
         codec = self.codec
-        g = torch.as_tensor(gamma, dtype=buf.dtype, device=buf.device)
-        if sparse and batched:
-            out = flatten.sparse_mix_variants(
-                buf, eta.idx, eta.val, g, wire=codec.encode(sent),
-                wire_self=codec.encode(buf))
-            return out, state
         if sparse:
-            gamma_node = g.reshape(1).expand(buf.shape[0]).contiguous()
-            out = flatten.cluster_mix_flat(
-                buf, eta.idx, eta.val, gamma_node,
-                wire=codec.encode(sent).contiguous(),
-                wire_self=codec.encode(buf))
-            return out, state
-        w_nb = codec.roundtrip(sent)
-        w_self = codec.roundtrip(buf)
-        eta32 = eta.to(buf.dtype)
-        row = eta32.sum(dim=-1)
-        mixed = flatten.apply_matrix_flat(w_nb.contiguous(), eta32)
-        if batched:
-            g = g.reshape(-1, 1, 1)
-        return buf + g * (mixed - row[..., None] * w_self), state
+            return _received_sparse(buf, eta, gamma, codec.encode(sent),
+                                    codec.encode(buf)), state
+        return _received_mix(buf, eta, gamma, codec.roundtrip(sent),
+                             codec.roundtrip(buf)), state
 
+
+@dataclasses.dataclass(frozen=True)
+class RingShardTransport(_FlatTransport):
+    """Eq. 5 on the ring ``{k-1, k+1}``: two shifted wire buffers, no dense
+    product. Needs K >= 3 (on K=2 both shifts alias the single neighbor and
+    its weight would be counted twice). Dense eta only: the shifts ARE its
+    topology, so only the ``(k, k-1)`` and ``(k, k+1)`` weights are read."""
+
+    wire_dtype: str = "f32"
+
+    def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
+        k = buf.shape[-2]
+        if k < 3:
+            raise ValueError(f"ring transport needs K >= 3 nodes, got {k}")
+        if isinstance(eta, SparseEta):
+            raise ValueError(
+                "ring transport is physically degree-2 (the {k-1, k+1} "
+                "shifts ARE its topology) — sparse top-D eta has nothing "
+                "to gather here; use the dense or gossip transport with "
+                "mixing_format='sparse'")
+        idx = torch.arange(k, device=buf.device)
+        eta32 = eta.to(buf.dtype)
+        ep = eta32[..., idx, (idx - 1) % k][..., None]     # weight for k-1
+        en = eta32[..., idx, (idx + 1) % k][..., None]     # weight for k+1
+        # fault injection swaps the payload the shifts move (the
+        # self-cancellation term stays the node's own buffer)
+        codec = self.codec
+        enc = codec.encode(buf if sent is None else sent)
+        w_self = codec.roundtrip(buf)
+        w_prev = codec.decode(torch.roll(enc, 1, dims=-2), buf.dtype)
+        w_next = codec.decode(torch.roll(enc, -1, dims=-2), buf.dtype)
+        out = buf + _gamma(gamma, buf) * (ep * (w_prev - w_self)
+                                          + en * (w_next - w_self))
+        return out, state
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipTransport(_FlatTransport):
+    """Bounded-delay gossip: the neighbor terms read a buffer snapshot
+    ``staleness`` rounds old, from a circular buffer of ENCODED snapshots
+    in the transport state (``(s, K, P)`` at the wire dtype; ``(V, s, K,
+    P)`` batched). ``staleness=0`` is stateless and bit-identical to
+    :class:`DenseTransport`."""
+
+    staleness: int = 0
+    wire_dtype: str = "f32"
+
+    @property
+    def stateful(self) -> bool:
+        return self.staleness > 0
+
+    def init_state(self, buf: torch.Tensor) -> Any:
+        if self.staleness == 0:
+            return ()
+        enc = self.codec.encode(buf)
+        return enc[None].expand((self.staleness,) + tuple(enc.shape)).clone()
+
+    def exchange(self, buf, eta, gamma, state=(), rnd=None, sent=None):
+        """Round ``rnd`` reads snapshot slot ``rnd % s``, last written at
+        round ``rnd - s``, and returns a state whose slot holds this
+        round's encoded payload (``sent``, scrubbed by the wire guard, or
+        ``buf``). The neighbor terms mix the decoded snapshot with the
+        CURRENT round's weights; the self term is the current buffer
+        through the codec, so ``s -> 0`` recovers the synchronous delta
+        form term by term."""
+        if self.staleness == 0:
+            return DenseTransport(self.wire_dtype).exchange(
+                buf, eta, gamma, state, rnd, sent=sent)
+        if rnd is None:
+            raise ValueError("stale gossip needs the round index (rnd)")
+        slot = int(rnd) % self.staleness
+        axis = buf.dim() - 2              # the slot axis: 0, or 1 batched
+        stale = state.select(axis, slot)
+        codec = self.codec
+        if isinstance(eta, SparseEta):
+            out = _received_sparse(buf, eta, gamma, stale, codec.encode(buf))
+        else:
+            out = _received_mix(buf, eta, gamma,
+                                codec.decode(stale, buf.dtype),
+                                codec.roundtrip(buf))
+        new_state = state.clone()
+        new_state.select(axis, slot).copy_(
+            codec.encode(buf if sent is None else sent))
+        return out, new_state
+
+
+# --------------------------------------------------------------------------
+# Registration + config factory.
+# --------------------------------------------------------------------------
 
 @transports.register("dense")
 def _make_dense(fed) -> DenseTransport:
     return DenseTransport(wire_dtype=fed.wire_dtype)
 
 
+@transports.register("ring")
+def _make_ring(fed) -> RingShardTransport:
+    if fed.num_nodes < 3:
+        raise ValueError("ring transport needs num_nodes >= 3")
+    if fed.topology != "ring":
+        raise ValueError(
+            f"ring transport moves data only between ring neighbors; "
+            f"topology={fed.topology!r} needs the dense transport")
+    return RingShardTransport(wire_dtype=fed.wire_dtype)
+
+
+@transports.register("gossip")
+def _make_gossip(fed) -> GossipTransport:
+    return GossipTransport(staleness=fed.staleness,
+                           wire_dtype=fed.wire_dtype)
+
+
+# the registered transport names, live
+TRANSPORTS = transports.view()
+
+
 def make_transport(fed) -> Any:
     """The transport a :class:`repro_torch.configs.base.FedConfig` asks
     for: a registry lookup."""
-    wire_codecs.get(fed.wire_dtype)
+    wire_codec(fed.wire_dtype)          # validate early
     return transports.get(fed.transport)(fed)

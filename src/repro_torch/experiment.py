@@ -32,10 +32,13 @@ from the generator on its own device (a generator on the card draws a
 full-width model there).
 
 * **Segmentation invariance.** ``Session.run`` draws the ``(R, K, S, B)``
-  batch indices itself, round r's from a generator keyed on (sample seed,
-  absolute round r); mobility stacks and fault plans are keyed on the
-  absolute round as well. So run(10) + save + resume + run(10) reproduces
-  run(20) bit for bit, with no generator state in the checkpoint.
+  batch indices itself (under duplicate-corrected ingest sampling, the
+  uniforms the sketches map to indices), round r's from a generator keyed
+  on (sample seed, absolute round r); mobility stacks and fault plans are
+  keyed on the absolute round as well, and gossip snapshots and ingest
+  sketches ride the state. So run(10) + save + resume + run(10)
+  reproduces run(20) bit for bit, with no generator state in the
+  checkpoint.
 * **Callbacks.** Per-round eval is a trainer metric (:class:`EvalCallback`);
   host-side hooks (:class:`CheckpointCallback`, :class:`ChurnLogCallback`)
   fire at segment boundaries, and the metrics of the segments are
@@ -46,8 +49,6 @@ full-width model there).
   through ``Trainer.run_rounds_batch``, V runs in the launches of one.
   Variant v equals a plain :class:`Session` compiled with its seed and
   configs.
-
-``IngestCallback`` is not ported yet (ROADMAP queue A item 19).
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ __all__ = [
     "Experiment", "Session", "RunResult",
     "SweepAxes", "BatchedSession", "BatchResult",
     "Callback", "EvalCallback", "CheckpointCallback", "ChurnLogCallback",
-    "DegreeStatsCallback", "HealthCallback",
+    "DegreeStatsCallback", "HealthCallback", "IngestCallback",
 ]
 
 
@@ -133,15 +134,19 @@ class CheckpointCallback(Callback):
 
 
 def _adjacency(session: "Session", rounds: int):
-    """The (R, K, K) radio links of the rounds a run covers, or None on a
-    static topology (the ring transport, which would gate them to the
-    ring, is not ported)."""
+    """The (R, K, K) radio links of the rounds a run covers, as the run
+    uses them (the ring transport gates them to the physical ring), or
+    None on a static topology."""
     fed = session.experiment.fed
     mob = fed.mobility
     if mob is None or mob.kind == "static":
         return None
     from repro_torch import mobility as mobility_lib
+    from repro_torch.core import topology
+    mask = (topology.adjacency("ring", fed.num_nodes)
+            if fed.transport == "ring" else None)
     return mobility_lib.adjacency_stack(mob, rounds, fed.num_nodes,
+                                        mask=mask,
                                         start=session.rounds_completed)
 
 
@@ -224,6 +229,27 @@ class HealthCallback(Callback):
             f"health: rounds={result.rounds} nodes={health.shape[1]} "
             f"crashed_node_rounds={crashed} quarantined={quarantined} "
             f"frozen={frozen}")
+
+
+class IngestCallback(Callback):
+    """Summarize the streaming-redundancy telemetry the trainer emits when
+    ``fed.ingest`` is active (the per-round ``(R, K)`` ``est_distinct``
+    stack in ``result.metrics``): one greppable line per run with each
+    node's final effective-cardinality estimate and the fleet spread the
+    mixing reweight gates on. No-op on ingest-free runs."""
+
+    def __init__(self, print_fn: Callable[[str], None] = print):
+        self.print_fn = print_fn
+
+    def on_run_end(self, session: "Session", result: "RunResult") -> None:
+        if "est_distinct" not in result.metrics:
+            return
+        est = result.metrics["est_distinct"][-1].cpu().numpy()
+        spread = float(est.max() / max(float(est.min()), 1e-9))
+        vals = " ".join(f"{v:.0f}" for v in est)
+        self.print_fn(
+            f"ingest: rounds={result.rounds} nodes={est.shape[0]} "
+            f"est_distinct=[{vals}] spread={spread:.2f}")
 
 
 # --------------------------------------------------------------------------
@@ -562,11 +588,15 @@ def _batch_indices(experiment: Experiment, data, n_items, seed: int,
     fed, train = experiment.fed, experiment.train
     shape = (fed.num_nodes, fed.local_steps, train.batch_size)
     max_items = next(iter(data.values())).shape[1]
+    uniforms = fed.ingest is not None and fed.ingest.active and \
+        fed.ingest.correct_sampling
     out = []
     for r in range(start, start + rounds):
         key = np.random.SeedSequence([seed, r]).generate_state(2, np.uint32)
         gen = torch.Generator().manual_seed((int(key[0]) << 32) | int(key[1]))
-        if n_items is None:
+        if uniforms:
+            out.append(torch.rand(shape, generator=gen))
+        elif n_items is None:
             out.append(torch.randint(0, max_items, shape, generator=gen))
         else:
             u = torch.rand(shape, generator=gen)
@@ -603,7 +633,9 @@ class Session:
         """The (R, K, S, B) batch indices of absolute rounds ``[start,
         start + rounds)``: round r's from a CPU generator keyed on
         (``seed``, r), uniform over the resident items, or over each
-        node's ``n_items`` as ``run_rounds`` draws them."""
+        node's ``n_items`` as ``run_rounds`` draws them. Under
+        duplicate-corrected ingest sampling, f32 uniforms in [0, 1) that
+        ``run_rounds`` maps through each round's sketch."""
         return _batch_indices(self.experiment, self.data, self._n_items,
                               self._seed if seed is None else seed, start,
                               rounds)
@@ -672,8 +704,8 @@ class Session:
     # -- checkpoint / resume -------------------------------------------------
     def save(self, path: str) -> str:
         """Checkpoint the FULL resumable state (params, optimizer, CND
-        ratios/sizes, round counter, transport and straggle state) to
-        ``path``."""
+        ratios/sizes, round counter, transport state such as gossip
+        snapshots, straggle buffer, ingest sketches) to ``path``."""
         _ckpt_save(path, self._state, step=self.rounds_completed)
         return path
 

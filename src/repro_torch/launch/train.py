@@ -7,9 +7,11 @@ the JAX package's ``repro.launch.train``, through the port's
 
 The CLI builds ONE ``RunConfig``; ``Experiment(config).compile(...)``
 derives the token-LM loss and init from it, and every plugin-name flag's
-choices come from :mod:`repro_torch.registry` (plus the names the JAX
-package knows and :data:`registry.NOT_PORTED` refuses with the ROADMAP
-item that ports them).
+choices come from :mod:`repro_torch.registry`: ``--transport
+dense|ring|gossip`` (with ``--staleness`` for gossip), ``--redundancy`` a
+float (host-side duplicates) or a redundancy scenario, whose streaming
+sketches then drive the weights (``--ingest-weighting``, ``--ingest-seed``)
+and print an ``INGEST_SMOKE`` verdict.
 
 Two drivers:
   * ``--driver scan`` (default) — ``Session.run``: the datasets live on
@@ -40,11 +42,13 @@ import numpy as np
 from repro_torch import registry
 from repro_torch.checkpointing import save
 from repro_torch.configs.base import (FaultConfig, FedConfig, HierarchyConfig,
-                                      MobilityConfig, RunConfig, TrainConfig)
+                                      IngestConfig, MobilityConfig,
+                                      RunConfig, TrainConfig)
 from repro_torch.configs.registry import ARCHS, get_smoke_arch
 from repro_torch.data import pipeline, redundancy, synthetic
 from repro_torch.experiment import (ChurnLogCallback, DegreeStatsCallback,
-                                    Experiment, HealthCallback, SweepAxes)
+                                    Experiment, HealthCallback,
+                                    IngestCallback, SweepAxes)
 from repro_torch.mobility.links import LINK_QUALITIES
 
 
@@ -103,20 +107,11 @@ def _parse_sweep(spec: str) -> dict:
     return axes
 
 
-def _unported(what: str, key) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                               f"{registry.NOT_PORTED[key]}")
-
-
 def main(argv=None):
     """Parse ``argv`` (default: the command line), train, print the
     reference's lines; returns the final :class:`FedState` and the
     ``(rounds, nodes)`` losses."""
     registry.ensure_plugins()
-    # the transports the JAX package knows: the port's, and those it refuses
-    transports = sorted(set(registry.transports.names()) | {
-        value for field, value in registry.NOT_PORTED
-        if field == "transport"})
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen3-1.7b")
     ap.add_argument("--rounds", type=int, default=20)
@@ -126,9 +121,11 @@ def main(argv=None):
     ap.add_argument("--redundancy", default="0.5",
                     help="a float: fraction of duplicated items injected "
                          "host-side per node (legacy CND path); or a "
-                         "redundancy scenario name, whose streaming-sketch "
-                         "ingest is not ported yet ("
-                         f"{registry.NOT_PORTED[('ingest', None)]})")
+                         "registered redundancy scenario name "
+                         f"({','.join(registry.redundancy_scenarios.names())})"
+                         " — streaming sketches then estimate redundancy "
+                         "on the ingest path and drive the weights "
+                         "(needs --driver scan)")
     ap.add_argument("--ingest-weighting", default="both",
                     choices=("none", "mixing", "sampling", "both"),
                     help="what the streaming-sketch estimates drive when "
@@ -144,7 +141,8 @@ def main(argv=None):
     ap.add_argument("--driver", choices=("scan", "loop"), default="scan",
                     help="scan: the rounds in one Session.run; "
                          "loop: one Trainer.round a round on host batches")
-    ap.add_argument("--transport", choices=transports, default="dense",
+    ap.add_argument("--transport", choices=registry.transports.names(),
+                    default="dense",
                     help="how the consensus exchange moves the flat "
                          "buffer (registered transport plugins)")
     ap.add_argument("--wire-dtype", choices=registry.wire_codecs.names(),
@@ -259,16 +257,19 @@ def main(argv=None):
                      "format yet (ROADMAP follow-on)")
 
     # --redundancy is overloaded: a float keeps the legacy host-side
-    # duplicate injection (static CND ratios); a scenario name would
-    # activate the streaming-redundancy ingest, which is not ported
+    # duplicate injection (static CND ratios), a scenario name activates
+    # the streaming-redundancy ingest (repro_torch.ingest)
+    ingest = None
     try:
         dup_fraction = float(args.redundancy)
     except ValueError:
         if args.driver != "scan":
             ap.error("--redundancy <scenario> needs --driver scan (the "
                      "streaming sketches ride the multi-round scan)")
-        raise _unported(f"--redundancy {args.redundancy}",
-                        ("ingest", None)) from None
+        dup_fraction = 0.0
+        ingest = IngestConfig(scenario=args.redundancy,
+                              weighting=args.ingest_weighting,
+                              seed=args.ingest_seed)
 
     faults = None
     if args.faults:
@@ -321,12 +322,15 @@ def main(argv=None):
                       mixing_format=args.mixing_format,
                       hierarchy=hierarchy,
                       degree=(min(8, args.nodes - 1)
-                              if args.degree is None else args.degree)),
+                              if args.degree is None else args.degree),
+                      ingest=ingest),
         train=TrainConfig(learning_rate=args.lr, batch_size=args.batch))
 
-    # per-node synthetic corpora with the duplicates injected host-side
-    # (the paper's redundant-data condition — CND sees static distinct
-    # ratios < 1)
+    # per-node synthetic corpora. A float --redundancy injects the
+    # duplicates host-side (the paper's redundant-data condition — CND
+    # sees static distinct ratios < 1); a scenario --redundancy leaves the
+    # corpora clean and lets the ingest plan rewrite the streams at run
+    # time (the streaming sketches estimate the redundancy).
     nodes = [
         redundancy.inject_duplicates(
             synthetic.token_lm(seed=i, n_seqs=n_seqs, seq_len=args.seq,
@@ -358,7 +362,8 @@ def main(argv=None):
     if args.driver == "scan":
         result = session.run(args.rounds, callbacks=[ChurnLogCallback(),
                                                      DegreeStatsCallback(),
-                                                     HealthCallback()])
+                                                     HealthCallback(),
+                                                     IngestCallback()])
         metrics = {name: np.asarray(v.cpu()) if hasattr(v, "cpu")
                    else np.asarray(v) for name, v in result.metrics.items()}
         losses = metrics["loss"]
@@ -385,6 +390,22 @@ def main(argv=None):
             print(f"FAULT_SMOKE {'ok' if ok else 'FAIL'} "
                   f"crashed_node_rounds={crashed} "
                   f"quarantined={quarantined}")
+        if ingest is not None and "est_distinct" in metrics:
+            # greppable CI smoke verdict: training made progress on the
+            # redundant streams, the sketches produced finite positive
+            # estimates, and (duplicate_heavy) the affected nodes are
+            # actually measured as redundancy-heavy (fleet spread)
+            est = metrics["est_distinct"][-1]
+            spread = float(est.max() / max(float(est.min()), 1e-9))
+            ok = (np.isfinite(losses).all()
+                  and losses[-1].mean() < losses[0].mean()
+                  and np.isfinite(est).all() and est.min() > 0
+                  and (ingest.scenario != "duplicate_heavy"
+                       or spread > 1.2))
+            print(f"INGEST_SMOKE {'ok' if ok else 'FAIL'} "
+                  f"scenario={ingest.scenario} "
+                  f"est_distinct={np.round(est, 1)} "
+                  f"spread={spread:.2f}")
         if hierarchy is not None and "gamma_intra" in metrics:
             # greppable CI smoke verdict: the two-tier mix trained (finite,
             # improving loss), the fleet actually partitioned into >= 1

@@ -16,20 +16,23 @@ caller.
 * :data:`robust_rules`    — Byzantine-robust aggregation rules replacing
   the eq. 5 mix (:mod:`repro_torch.faults.robust`);
 * :data:`algorithms`      — trainer-level schemes
-  (:class:`AlgorithmSpec`, registered by :mod:`repro_torch.core.baselines`).
+  (:class:`AlgorithmSpec`, registered by :mod:`repro_torch.core.baselines`);
+* :data:`redundancy_scenarios` — data-redundancy generators compiled into
+  per-node item streams on the ingest path
+  (:mod:`repro_torch.ingest.scenarios`).
 
-Names the JAX package knows but the port does not run yet are listed in
-:data:`NOT_PORTED`: a config may name them, and ``build_trainer`` (or the
-training CLI, for a scenario ``--redundancy``) refuses them with the
-ROADMAP item that will port them. Its model-side twin,
-:data:`MODEL_NOT_PORTED`, does the same for the model families, block
-kinds and modalities of ``ModelConfig`` that ``models/transformer.py``
-does not build yet (:func:`check_model_ported`).
+Every ``FedConfig`` option of the JAX package is ported, so
+:data:`NOT_PORTED` is empty. Its model-side twin, :data:`MODEL_NOT_PORTED`,
+lists the model families, block kinds and modalities of ``ModelConfig``
+that ``models/transformer.py`` does not build yet, and
+:func:`check_model_ported` refuses them with the ROADMAP item that will
+port them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from collections.abc import Mapping
+from typing import Any, Callable, Iterator
 
 
 class Registry:
@@ -70,6 +73,28 @@ class Registry:
     def names(self) -> tuple[str, ...]:
         return tuple(sorted(self._entries))
 
+    def view(self) -> "RegistryView":
+        """Live read-only Mapping over the registry (the reference's
+        module-level views such as ``transport.TRANSPORTS``)."""
+        return RegistryView(self)
+
+
+class RegistryView(Mapping):
+    """Read-only live Mapping over a :class:`Registry`: plugins registered
+    after it was made show up in it."""
+
+    def __init__(self, registry: Registry):
+        self._registry = registry
+
+    def __getitem__(self, name: str) -> Any:
+        return self._registry.get(name)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._registry.names())
+
+    def __len__(self) -> int:
+        return len(self._registry.names())
+
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmSpec:
@@ -91,15 +116,11 @@ leader_policies = Registry("leader policy")
 fault_models = Registry("fault model")
 robust_rules = Registry("robust aggregation rule")
 algorithms = Registry("algorithm")
+redundancy_scenarios = Registry("redundancy scenario")
 
-# (config field, value) -> the ROADMAP item that ports it
-NOT_PORTED = {
-    ("transport", "ring"): "ROADMAP queue A item 20 (ring and gossip "
-                           "transports)",
-    ("transport", "gossip"): "ROADMAP queue A item 20 (ring and gossip "
-                             "transports)",
-    ("ingest", None): "ROADMAP queue A item 19 (ingest)",
-}
+# (config field, value) -> the ROADMAP item that ports it: empty, every
+# FedConfig option of the JAX package is ported
+NOT_PORTED: dict = {}
 
 _MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"
 
@@ -148,23 +169,19 @@ def ensure_plugins() -> None:
     import repro_torch.faults.models    # noqa: F401  (fault models)
     import repro_torch.faults.robust    # noqa: F401  (robust rules)
     import repro_torch.hierarchy.leaders  # noqa: F401  (leader policies)
+    import repro_torch.ingest.scenarios  # noqa: F401  (redundancy scenarios)
+    import repro_torch.ingest.weighting  # noqa: F401  ("redundancy" policy)
     import repro_torch.core.baselines   # noqa: F401  (algorithms)
     _loaded = True
 
 
-def _check_name(registry: Registry, field: str, name: str) -> None:
-    if (field, name) not in NOT_PORTED:
-        registry.get(name)
-
-
 def validate_fed_config(fed) -> None:
-    """Every plugin name on a ``FedConfig`` must be registered or known to
-    the JAX package and listed in :data:`NOT_PORTED`."""
+    """Every plugin name on a ``FedConfig`` must be registered."""
     ensure_plugins()
-    _check_name(transports, "transport", fed.transport)
+    transports.get(fed.transport)
     wire_codecs.get(fed.wire_dtype)
     mixing_policies.get(fed.mixing)
-    _check_name(algorithms, "algorithm", fed.algorithm)
+    algorithms.get(fed.algorithm)
     if fed.robust is not None:
         robust_rules.get(fed.robust)
     fmt = fed.mixing_format
@@ -230,6 +247,12 @@ def validate_fault_config(faults) -> None:
     ensure_plugins()
     for kind in faults.kinds:
         fault_models.get(kind)
+
+
+def validate_ingest_config(ing) -> None:
+    ensure_plugins()
+    if ing.scenario != "none":
+        redundancy_scenarios.get(ing.scenario)
 
 
 def validate_mobility_config(mob) -> None:

@@ -4,7 +4,8 @@ paper MLP at K=4 from the same initial params and batch indices, dense f32
 and bf16 and the platoon; ``Trainer.round`` and ``eta_fn``; and, in the
 port alone, what a resumable session promises: run(10) + save + resume +
 run(10) equals run(20) bit for bit, ``every=N`` segments are invisible,
-callbacks fire in the reference's order, and unported paths are refused.
+callbacks fire in the reference's order, ring and gossip compile and run,
+and unported paths are refused.
 Both packages run on the CPU, the port through its plain kernel versions.
 The data has injected duplicates, for the Adam-eps reason in ROADMAP
 queue C."""
@@ -304,9 +305,22 @@ def test_run_rejects_nonpositive_rounds_and_double_eval(paper_data):
 
 @pytest.mark.parametrize("transport", ["ring", "gossip"])
 def test_unported_transports_are_refused(paper_data, transport):
+    """Ring and gossip (ROADMAP item 20, refused until it was ported)
+    compile and run through the Experiment; gossip carries its snapshots
+    in the session's state."""
     data, items = paper_data
-    with pytest.raises(NotImplementedError, match="item 20"):
-        _experiment({"transport": transport}).compile(data, items)
+    kw = {"transport": transport}
+    if transport == "gossip":
+        kw["staleness"] = 2
+    result = _experiment(kw).compile(data, items).run(2)
+    assert result.state.round == 2
+    assert torch.isfinite(result.metrics["loss"]).all()
+    assert tuple(result.metrics["loss"].shape) == (2, K)
+    snapshots = result.state.tstate
+    if transport == "gossip":
+        assert tuple(snapshots.shape) == (2,) + tuple(result.state.buf.shape)
+    else:
+        assert snapshots == ()
 
 
 def test_token_lm_config_and_model_free_config_are_refused():

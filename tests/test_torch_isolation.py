@@ -73,8 +73,8 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["FedConfig", "TrainConfig", "MeshConfig",
                                   "MobilityConfig", "HierarchyConfig",
-                                  "FaultConfig", "ModelConfig",
-                                  "ShapeConfig"])
+                                  "FaultConfig", "IngestConfig",
+                                  "ModelConfig", "ShapeConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tbase, name)) == _fields(getattr(jbase, name))
 
@@ -207,7 +207,7 @@ def test_entry_points_default_to_the_card():
 
 # ROADMAP items ported after their options were first refused here: a
 # config naming them now builds, and NOT_PORTED no longer lists them
-_PORTED = {"item 14", "item 16"}
+_PORTED = {"item 14", "item 16", "item 19", "item 20"}
 _CRASH = tbase.FaultConfig(kinds=("crash",), crash_rate=0.2)
 
 
@@ -223,7 +223,7 @@ _CRASH = tbase.FaultConfig(kinds=("crash",), crash_rate=0.2)
      "item 16"),
     ({"faults": _CRASH}, "item 16"),
     ({"robust": "median"}, "item 16"),
-    ({"ingest": object()}, "item 19"),
+    ({"ingest": tbase.IngestConfig(scenario="duplicate_heavy")}, "item 19"),
 ])
 def test_unported_options_are_refused(kw, item):
     fed = tbase.FedConfig(**kw)

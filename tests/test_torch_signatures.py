@@ -3,10 +3,11 @@ comparison (no JAX import) of every top-level function and class method of
 ``src/repro/kernels/ops.py``, ``src/repro/core/cdfl.py``,
 ``src/repro/experiment.py``, ``src/repro/checkpointing/checkpoint.py``,
 ``src/repro/launch/train.py``, ``src/repro/data/pipeline.py``,
-``src/repro/data/synthetic.py`` and ``src/repro/mobility/mixing.py`` with
-its twin in ``src/repro_torch`` (the ingest callback of ``experiment.py``
-waits for ROADMAP queue A item 19), and of the trainer's batched driver
-and stack builder nested in ``build_trainer``. The
+``src/repro/data/synthetic.py``, ``src/repro/mobility/mixing.py``,
+``src/repro/core/transport.py``, ``src/repro/core/sketch.py`` and the three
+modules of ``src/repro/ingest/`` with its twin in ``src/repro_torch``, and
+of the trainer's batched driver and stack builder nested in
+``build_trainer``. The
 leading positional parameters and their defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
 ``interpret``, ``transport``, ``flat_local``); the reference's
@@ -31,12 +32,21 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
          ("repro/launch/train.py", "repro_torch/launch/train.py"),
          ("repro/data/pipeline.py", "repro_torch/data/pipeline.py"),
          ("repro/data/synthetic.py", "repro_torch/data/synthetic.py"),
-         ("repro/mobility/mixing.py", "repro_torch/mobility/mixing.py")]
-# whole functions that are dispatch switches of the reference, and the
-# ingest callback not ported yet
-DROPPED_FUNCTIONS = {"use_pallas", "_interpret"}
-DROPPED_CLASSES = {"IngestCallback"}
+         ("repro/mobility/mixing.py", "repro_torch/mobility/mixing.py"),
+         ("repro/core/transport.py", "repro_torch/core/transport.py"),
+         ("repro/core/sketch.py", "repro_torch/core/sketch.py"),
+         ("repro/ingest/scenarios.py", "repro_torch/ingest/scenarios.py"),
+         ("repro/ingest/sketches.py", "repro_torch/ingest/sketches.py"),
+         ("repro/ingest/weighting.py", "repro_torch/ingest/weighting.py")]
+# whole functions that are dispatch switches of the reference (its CPU
+# wire-cast gate among them), and the mesh path of the ring transport with
+# its dtype helper, which wait for ROADMAP queue A item 24
+DROPPED_FUNCTIONS = {"use_pallas", "_interpret", "_fused_wire",
+                     "_cast_noops", "ring_exchange_shard", "_wire_dtype"}
+DROPPED_CLASSES: set = set()
 DROPPED_METHODS: set = set()
+# the same default in each package's spelling
+SAME_DEFAULT = {"jnp.float32": "torch.float32"}
 DROPPED_PARAMS = {"force_kernel", "use_pallas", "interpret", "transport",
                   "flat_local"}
 
@@ -62,7 +72,8 @@ def _positional(args: ast.arguments) -> list[tuple[str, str | None]]:
     """(name, default source or None) of each positional parameter."""
     params = args.posonlyargs + args.args
     defaults = [None] * (len(params) - len(args.defaults)) + \
-        [ast.unparse(d) for d in args.defaults]
+        [SAME_DEFAULT.get(ast.unparse(d), ast.unparse(d))
+         for d in args.defaults]
     return [(p.arg, d) for p, d in zip(params, defaults)]
 
 
@@ -76,8 +87,10 @@ CASES = [(ref_rel, port_rel, name)
          for name in _functions(ref_rel) if name not in DROPPED_FUNCTIONS]
 # 62 before the batched sweeps: + SweepAxes (2), BatchResult (2),
 # BatchedSession (7), Experiment.compile_batch, _run_sweep and the ten
-# functions of mobility/mixing.py
-CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10
+# functions of mobility/mixing.py; then IngestCallback (2), the 22 of
+# core/transport.py, the 15 of core/sketch.py and the 7 + 5 + 7 of
+# ingest/scenarios.py, sketches.py and weighting.py
+CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7
 
 
 def test_every_reference_function_is_compared():
@@ -91,7 +104,10 @@ def test_every_reference_function_is_compared():
             "FederatedBatcher.node_items", "SweepAxes.variants",
             "BatchResult.select", "BatchedSession.run_batch",
             "Experiment.compile_batch", "_run_sweep",
-            "stack_variant_stacks"} <= names
+            "stack_variant_stacks", "IngestCallback.on_run_end",
+            "GossipTransport.exchange", "RingShardTransport.exchange",
+            "wire_codec", "simhash", "compile_plan", "slot_hashes",
+            "weighted_indices", "reweight_eta"} <= names
     assert len(CASES) == CASE_COUNT
 
 

@@ -138,8 +138,8 @@ def test_algorithm_mixing_and_policy_names_match_reference():
     jregistry.ensure_plugins()
     tregistry.ensure_plugins()
     assert ttopo.ALGORITHM_MIXING == jtopo.ALGORITHM_MIXING
-    assert tregistry.mixing_policies.names() == tuple(
-        n for n in jregistry.mixing_policies.names() if n != "redundancy")
+    assert tregistry.mixing_policies.names() == \
+        jregistry.mixing_policies.names()
 
 
 # --- the twin of tests/test_topology.py's property fuzz, on both packages --
