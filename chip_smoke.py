@@ -115,7 +115,22 @@ with its bf16 snapshots bit for bit, the CLI's gossip ``--sweep``; ingest
 on the paper K=4 MLP (duplicate-heavy, sampling and mixing, drift; the
 card's weighted indices and sketches equal to the CPU's) and on the
 K=1024 sparse fleet (sensor overlap, B5), each in turns with its
-ingest-free run, with the ``IngestCallback`` line. Then the loaded
+ingest-free run, with the ``IngestCallback`` line. Then the model
+families: B9 at each family's prefill shape (zamba2's and musicgen's G = 1
+at D = 64, internvl2's G = 6 at D = 128 over 1,024 patch embeddings and
+512 tokens, mixtral's 4,096-token window), f32 and bf16, against its plain
+version and timed against SDPA; zamba2-1.2b, musicgen-medium and
+internvl2-26b at full width and depth and mixtral-8x7b at full width and
+16 of 32 layers, in bf16 (4 x 512 prompt tokens through the prefill step,
+B9 in every attention layer, the MoE's dropped (token, choice) pairs at
+capacity 1.25, 16 decode tokens, one profiled prefill and decode step);
+the f32 gates (128-token prefill against teacher-forced decode, internvl2
+at 8 and mixtral at 4 layers, mixtral at capacity 8.0, zamba2 also through
+the sequential scan), bf16 against f32 on the same weights (3e-2 of max
+|logit|, or twice a plain-attention control's drift where larger; mixtral
+on the positions with no flipped expert at or before them) and the five
+smoke arches (mixtral, dbrx, zamba2, internvl2, musicgen) through
+``serve.main`` on the card against the CPU. Then the loaded
 libraries by digest; the kernel
 table (ten kernels, B1 and B2 also with their variant axis) as one JSON
 line; and the verdict as the last line. Every path
@@ -127,6 +142,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -230,6 +246,20 @@ INGEST_FLEET = dict(scenario="sensor_overlap")
 # bf16 rwkv6-7b, each block from the same input: B10 against its plain
 # version, of max |output| (two bf16 ulps at the top of a binade)
 RWKV_LAYER_TOL = 2.0 ** -6
+# the model families (MoE, hybrid, vision, audio): bf16 serving at full
+# width, every leaf counted; mixtral cut to 16 of its 32 layers (93.4 GB
+# whole does not fit the card's 80 GB), the others at full depth. The f32
+# gates cut depth only where the card forces it (internvl2 8 layers,
+# mixtral 4, about 24 GB)
+FAMILY_SERVE = {"zamba2-1.2b": (None, 2_879_311_872),
+                "musicgen-medium": (None, 1_365_543_936),
+                "internvl2-26b": (None, 19_861_260_288),
+                "mixtral-8x7b": (16, 23_482_470_400)}
+FAMILY_F32_LAYERS = {"internvl2-26b": 8, "mixtral-8x7b": 4}
+FAMILY_SMOKE = ("mixtral-8x7b", "dbrx-132b", "zamba2-1.2b", "internvl2-26b",
+                "musicgen-medium")
+FAMILY_BF16_TOL = 3e-2        # bf16 against f32, of max |logit| (qwen3's)
+WIDE_CAPACITY = 8.0           # tests/test_models.py:65: no token dropped
 
 
 def fail(msg: str) -> None:
@@ -474,6 +504,51 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+def b9_agrees(label, out, q, k, v, causal, window, rows,
+              bf16_ulp) -> tuple[float, float]:
+    """Hold B9's output against its plain version at the script's gates:
+    f32 within rtol = atol = B9_TOL of the plain version; bf16 within one
+    bf16 ulp of the f32 plain version where |value| >= 2**-7 (one ulp +
+    B9_TOL below) and within 2e-2 of the bf16 plain version. Prints the
+    ``check flash_attention`` line, adds to B9's max_abs_err and returns
+    (max |diff| from the f32 plain version, the worst bf16 distance in
+    ulps: 0 in f32)."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    torch.cuda.synchronize()
+    diff = (out.float() - want).abs()
+    err = diff.max().item()
+    worst = 0.0
+    if out.dtype == torch.float32:
+        if not torch.allclose(out, want, rtol=B9_TOL, atol=B9_TOL):
+            fail(f"flash_attention {label} disagrees with its plain "
+                 f"version: max |diff| {err:.3e} > {B9_TOL}")
+        more = f"(rtol=atol={B9_TOL})"
+    else:
+        ulp = bf16_ulp(want)
+        big = want.abs() >= 2 ** -7
+        over = int((diff[big] > ulp[big]).sum().item())
+        if over or not bool((diff <= ulp + B9_TOL).all()):
+            fail(f"flash_attention {label}: {over} outputs with |value| "
+                 f">= 2**-7 differ from the f32 plain version by more "
+                 f"than one bf16 ulp; max |diff| {err:.3e}")
+        worst = (diff / ulp)[big].max().item() if big.any() else 0.0
+        plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+        err16 = (out.float() - plain.float()).abs().max().item()
+        if not torch.allclose(out.float(), plain.float(), rtol=2e-2,
+                              atol=2e-2):
+            fail(f"flash_attention {label} differs from its bf16 plain "
+                 f"version by {err16:.3e} > 2e-2")
+        more = (f"(f32 plain: max {worst:.3f} ulp where |value| >= 2**-7;"
+                f" bf16 plain: max |diff| {err16:.3e}, tol 2e-2)")
+    print(f"check flash_attention {label} max_abs_err={err:.3e} {more}",
+          flush=True)
+    row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    return err, worst
+
+
 def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
     """Kernel B9 and the qwen3-1.7b serving path: B9 against its plain
     version over tests/test_kernels.py's sweep and the path's shapes; the
@@ -538,42 +613,13 @@ def serving(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
                      f"not launch B9")
         else:
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention(q.float(), k.float(), v.float(),
-                                   causal=causal, window=window)
-        torch.cuda.synchronize()
         label = (f"B={b} Sq={sq} Sk={sk} H={h} KV={kv} D={d} causal={causal}"
                  f" window={window} {str(dtype)[6:]}"
                  f"{f' offset={off} (ops)' if off else ''}")
-        diff = (out.float() - want).abs()
-        err = diff.max().item()
-        if dtype == torch.float32:
-            if not torch.allclose(out, want, rtol=B9_TOL, atol=B9_TOL):
-                fail(f"flash_attention {label} disagrees with its plain "
-                     f"version: max |diff| {err:.3e} > {B9_TOL}")
-            more = f"(rtol=atol={B9_TOL})"
-        else:
-            ulp = bf16_ulp(want)
-            big = want.abs() >= 2 ** -7
-            over = int((diff[big] > ulp[big]).sum().item())
-            if over or not bool((diff <= ulp + B9_TOL).all()):
-                fail(f"flash_attention {label}: {over} outputs with |value| "
-                     f">= 2**-7 differ from the f32 plain version by more "
-                     f"than one bf16 ulp; max |diff| {err:.3e}")
-            worst = (diff / ulp)[big].max().item() if big.any() else 0.0
-            plain = ref.flash_attention(q, k, v, causal=causal, window=window)
-            err16 = (out.float() - plain.float()).abs().max().item()
-            if not torch.allclose(out.float(), plain.float(), rtol=2e-2,
-                                  atol=2e-2):
-                fail(f"flash_attention {label} differs from its bf16 plain "
-                     f"version by {err16:.3e} > 2e-2")
-            more = (f"(f32 plain: max {worst:.3f} ulp where |value| >= 2**-7;"
-                    f" bf16 plain: max |diff| {err16:.3e}, tol 2e-2)")
-            if worst > worst_ulp["ulp"]:
-                worst_ulp.update(ulp=worst, case=label)
-        print(f"check flash_attention {label} max_abs_err={err:.3e} {more}",
-              flush=True)
-        row = rows.setdefault("flash_attention", {"max_abs_err": 0.0})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
+        _, worst = b9_agrees(label, out, q, k, v, causal, window, rows,
+                             bf16_ulp)
+        if worst > worst_ulp["ulp"]:
+            worst_ulp.update(ulp=worst, case=label)
         return q, k, v
 
     for b, sq, sk, h, kv, d in ((1, 128, 128, 2, 2, 64),   # MHA
@@ -1170,10 +1216,10 @@ def rwkv_serving(dev, rows, record, add, expect_counts) -> None:
     for i in range(cfg.num_layers):
         p_i = transformer._layer(params["layers"], i)
         with plain_b10:
-            out_p = transformer._apply_block(p_i, cfg, x_p)[0]
-        same.append(rel_diff(transformer._apply_block(p_i, cfg, x_p)[0],
-                             out_p))
-        x_k = transformer._apply_block(p_i, cfg, x_k)[0]
+            out_p = transformer._apply_block(p_i, cfg, "rwkv", x_p)[0]
+        same.append(rel_diff(
+            transformer._apply_block(p_i, cfg, "rwkv", x_p)[0], out_p))
+        x_k = transformer._apply_block(p_i, cfg, "rwkv", x_k)[0]
         apart.append(rel_diff(x_k, out_p))
         x_p = out_p
     del x_p, x_k, out_p, p_i
@@ -2804,9 +2850,419 @@ def llm_training(dev, add, expect_counts) -> None:
           flush=True)
 
 
+def cut_depth(cfg, layers):
+    """``cfg`` with its first ``layers`` layers (block pattern included);
+    None keeps every layer."""
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               block_pattern=cfg.block_pattern[:layers])
+
+
+def cast_params(tree, dtype):
+    """Params in ``dtype``, the MoE router kept in f32 (as init draws it
+    for every dtype)."""
+    if isinstance(tree, dict):
+        return {k: v if k == "router" else cast_params(v, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def model_families(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
+    """The MoE, hybrid (mamba and shared attention), vision and audio
+    families: B9 at each family's prefill shape in f32 and bf16 against its
+    plain version, timed against SDPA; zamba2-1.2b, musicgen-medium and
+    internvl2-26b (1,024 stub patch embeddings before the text) at full
+    width and depth, mixtral-8x7b at full width and 16 layers, in bf16
+    (prefill of 4 x 512 prompt tokens, B9's launches counted, 16 decode
+    tokens, one profiled prefill and decode step); the f32 gates (128-token
+    prefill against teacher-forced decode; mixtral at capacity 8.0, zamba2
+    also through the sequential scan) and bf16 against f32 on the same
+    weights (mixtral on the positions whose experts agree); the five smoke
+    arches on the card against the CPU."""
+    from repro_torch.configs.registry import get_arch, get_smoke_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import mamba, moe, stubs, transformer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase model families starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def attn_layers(cfg) -> int:
+        return sum(k in ("attn", "shared_attn") for k in cfg.blocks())
+
+    def prefix(cfg) -> int:
+        return cfg.num_patches if cfg.modality == "vision" else 0
+
+    def counts_only(label, counts, b9):
+        expect_counts(label, counts, {name: (b9 if name == "flash_attention"
+                                             else 0) for name in counted()})
+        add(counts)
+
+    # every route the MoE layers take: (ids (..., k), capacity or None, E)
+    routes = []
+    real_route = moe.route
+
+    def logged_route(params, cfg, tokens):
+        out = real_route(params, cfg, tokens)
+        cap = (moe._capacity(tokens.shape[1], cfg.num_experts,
+                             cfg.experts_per_token, cfg.capacity_factor)
+               if tokens.dim() == 3 else None)
+        routes.append((out[2], cap, cfg.num_experts))
+        return out
+
+    route_log = unittest.mock.patch.object(moe, "route", logged_route)
+
+    def dropped_share() -> tuple[int, int]:
+        """(dropped, all) (token, choice) pairs of the logged prefill
+        routes."""
+        dropped = total = 0
+        for idx, cap, e in routes:
+            if cap is not None:
+                _, pos = moe.queue_positions(idx, e)
+                dropped += int((pos >= cap).sum().item())
+                total += pos.numel()
+        return dropped, total
+
+    # -- 12a. B9 at the families' prefill shapes ---------------------------
+    for arch in FAMILY_SERVE:
+        cfg = get_arch(arch)
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        d, win = cfg.resolved_head_dim(), cfg.sliding_window
+        for dtype, s_len in ((torch.float32, F32_PROMPT + prefix(cfg)),
+                             (torch.bfloat16, SERVE_PROMPT + prefix(cfg))):
+            shape = (SERVE_BATCH, s_len)
+            q = torch.randn(shape + (h, d), generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn(shape + (kvh, d), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(shape + (kvh, d), generator=gen,
+                            device=dev).to(dtype)
+            out = fa.flash_attention(q, k, v, causal=True, window=win)
+            dt = str(dtype)[6:]
+            label = (f"{arch} B={SERVE_BATCH} S={s_len} H={h} KV={kvh} D={d} "
+                     f"G={h // kvh} causal window={win} {dt}")
+            err, _ = b9_agrees(label, out, q, k, v, True, win, rows,
+                               bf16_ulp)
+            g = h // kvh
+            kr = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            vr = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            qt = q.transpose(1, 2).contiguous()
+            if win is not None and win < s_len:
+                fail(f"{label}: the timing row's SDPA takes the window as "
+                     f"causal, which needs window >= S")
+            if dtype == torch.float32:
+                band = torch.ones((s_len, s_len), dtype=torch.bool,
+                                  device=dev).tril()
+                lib = (lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kr, vr, attn_mask=band))
+                what = "attn_mask=causal band) in f32, TF32 off"
+            else:
+                lib = (lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kr, vr, is_causal=True))
+                what = "is_causal=True)"
+            pairs = SERVE_BATCH * h * live_pairs(s_len, s_len, True, win)
+            e = q.element_size()
+            record("flash_attention", label, err,
+                   lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=win),
+                   lambda: ref.flash_attention(q, k, v, causal=True,
+                                               window=win),
+                   lib, 2 * (q.numel() * e + k.numel() * e), 4 * d * pairs,
+                   F32_OPS_PER_S if dtype == torch.float32
+                   else BF16_OPS_PER_S, slow=s_len > SERVE_PROMPT,
+                   table=False,
+                   extra={"live_pairs": pairs,
+                          "library": f"torch.nn.functional.scaled_dot_"
+                                     f"product_attention({what} on (B, H, "
+                                     f"S, D), k/v repeated to H outside the "
+                                     f"timing"})
+            del q, k, v, kr, vr, qt, out
+
+    # -- 12b. bf16 serving at full width -----------------------------------
+    for arch, (layers, n_expect) in FAMILY_SERVE.items():
+        cfg = dataclasses.replace(cut_depth(get_arch(arch), layers),
+                                  dtype="bfloat16")
+        n_attn = attn_layers(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gen_m = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, gen_m, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if n_params != n_expect:
+            fail(f"{arch} ({cfg.num_layers} layers) has {n_params} params, "
+                 f"expected {n_expect}")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH,
+                                                    SERVE_PROMPT),
+                                generator=gen_m, device=dev,
+                                dtype=torch.int32)
+        batch = {"tokens": prompts}
+        if cfg.modality == "vision":
+            batch["embeds"] = stubs.vision_patch_embeddings(gen_m, cfg,
+                                                            SERVE_BATCH)
+        prefill = steps.make_prefill_step(cfg)
+        prefill(params, batch)                   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        routes.clear()
+        with route_log:
+            t0 = time.perf_counter()
+            tok = prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        counts_only(f"{arch} bf16 prefill", read_counts(), n_attn)
+        dropped, pairs = dropped_share()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            prof_pf_ms = 1e3 * (time.perf_counter() - t0)
+        busy_pf, n_pf = device_profile(prof)
+        # B9 is flash_tc_kernel (bf16) and flash_kernel (f32)
+        if n_attn and not any("flash_" in n.split("<")[0] for n in busy_pf):
+            fail(f"{arch} bf16 profiled prefill launched B9 but no flash_ "
+                 f"kernel shows device time")
+        serve_step = steps.make_serve_step(cfg)
+        warm = transformer.init_decode(cfg, SERVE_BATCH, 4, device=dev)
+        for _ in range(2):
+            serve_step(params, warm, tok)
+        del warm
+        # the cache sized for the prompt and the generated tokens: each
+        # decode step's attention reads all of it (masked), as at the end
+        # of a 512-token prompt
+        state = transformer.init_decode(cfg, SERVE_BATCH,
+                                        SERVE_PROMPT + SERVE_GEN + 1,
+                                        device=dev)
+        generated = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GEN):
+            generated.append(tok)
+            tok, state = serve_step(params, state, tok)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / SERVE_GEN
+        counts_only(f"{arch} bf16 decode", read_counts(), 0)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tok, state = serve_step(params, state, tok)
+            torch.cuda.synchronize()
+            prof_dec_ms = 1e3 * (time.perf_counter() - t0)
+        busy_dec, n_dec = device_profile(prof)
+        gen_tokens = torch.stack(generated, dim=1).cpu()
+        if not bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size))
+                    .all()):
+            fail(f"{arch} bf16: generated tokens out of the vocabulary")
+        n_prompt = SERVE_BATCH * (SERVE_PROMPT + prefix(cfg))
+        drop = (f" dropped (token, choice) pairs at capacity "
+                f"{cfg.capacity_factor}: {dropped}/{pairs} "
+                f"({dropped / pairs:.4f})" if pairs else "")
+        print(f"path serve {arch} bf16 params={n_params} layers="
+              f"{cfg.num_layers} batch={SERVE_BATCH} prompt={SERVE_PROMPT}"
+              f"{f' + {prefix(cfg)} patch embeddings' if prefix(cfg) else ''}"
+              f" gen={SERVE_GEN} init_s={init_s:.2f} prefill_ms="
+              f"{1e3 * prefill_s:.3f} prefill_tokens/s="
+              f"{n_prompt / prefill_s:.1f} decode_ms/token={decode_ms:.3f} "
+              f"decode_tokens/s={SERVE_BATCH * 1e3 / decode_ms:.1f} "
+              f"peak_mem_GB={peak_gb:.3f} B9 launches a prefill="
+              f"{n_attn}{drop} sample={gen_tokens[0, :8].tolist()}",
+              flush=True)
+        for what, busy, n_ev, wall in (("prefill", busy_pf, n_pf, prof_pf_ms),
+                                       ("decode step", busy_dec, n_dec,
+                                        prof_dec_ms)):
+            busy_ms = sum(busy.values())
+            top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+            print(f"profile serve {arch} bf16 {what}: wall_ms={wall:.3f} "
+                  f"device_busy_ms={busy_ms:.3f} busy_share="
+                  f"{busy_ms / wall:.4f} device_events={n_ev} top="
+                  f"{[(n, round(v, 4)) for n, v in top]} (reported, not "
+                  f"gated)", flush=True)
+        del params, state, batch, prompts
+
+    # -- 12c. f32: prefill against teacher-forced decode; bf16 against f32 -
+    for arch in FAMILY_SERVE:
+        cfg32 = cut_depth(dataclasses.replace(get_arch(arch),
+                                              dtype="float32"),
+                          FAMILY_F32_LAYERS.get(arch))
+        if cfg32.num_experts:
+            cfg32 = dataclasses.replace(cfg32,
+                                        capacity_factor=WIDE_CAPACITY)
+        n_attn = attn_layers(cfg32)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        gen_m = torch.Generator(device=dev).manual_seed(0)
+        params32 = transformer.init_params(cfg32, gen_m, device=dev)
+        p32 = {"tokens": torch.randint(0, cfg32.vocab_size,
+                                       (SERVE_BATCH, F32_PROMPT),
+                                       generator=gen_m, device=dev,
+                                       dtype=torch.int32)}
+        reset_counts()
+        t0 = time.perf_counter()
+        tok_pf = steps.make_prefill_step(cfg32)(params32, p32)
+        torch.cuda.synchronize()
+        pf_ms = 1e3 * (time.perf_counter() - t0)
+        lg_pf = transformer.forward(params32, cfg32, p32,
+                                    last_only=True)[0][:, 0]
+        counts_only(f"{arch} f32 prefill", read_counts(), 2 * n_attn)
+        scan = ""
+        if "mamba" in cfg32.blocks():
+            # the same prefill with the sequential scan in every mamba block
+            seq = functools.partial(mamba.forward, use_chunked=False)
+            with unittest.mock.patch.object(mamba, "forward", seq):
+                lg_scan = transformer.forward(params32, cfg32, p32,
+                                              last_only=True)[0][:, 0]
+        state32 = transformer.init_decode(cfg32, SERVE_BATCH, F32_PROMPT,
+                                          device=dev)
+        step32 = steps.make_serve_step(cfg32)
+        reset_counts()
+        t0 = time.perf_counter()
+        for t in range(F32_PROMPT - 1):
+            _, state32 = step32(params32, state32, p32["tokens"][:, t])
+        lg_tf = transformer.decode_step(params32, cfg32, state32,
+                                        p32["tokens"][:, -1])[0]
+        torch.cuda.synchronize()
+        tf_s = time.perf_counter() - t0
+        counts_only(f"{arch} f32 decode", read_counts(), 0)
+        rel = rel_diff(lg_pf, lg_tf)
+        tok_tf = torch.argmax(lg_tf, dim=-1).to(torch.int32)
+        if "mamba" in cfg32.blocks():
+            scan = (f" sequential-scan prefill against teacher-forced "
+                    f"{rel_diff(lg_scan, lg_tf):.3e}, chunked against scan "
+                    f"prefill {rel_diff(lg_pf, lg_scan):.3e}")
+        if not (rel <= 1e-4 and torch.equal(tok_pf, tok_tf)):
+            fail(f"{arch} f32: prefill against teacher-forced decode "
+                 f"{rel:.3e} of max |logit| (<= 1e-4), tokens "
+                 f"{tok_pf.tolist()} against {tok_tf.tolist()}{scan}")
+        print(f"check prefill-vs-teacher-forced {arch} f32 layers="
+              f"{cfg32.num_layers} prompt={F32_PROMPT}"
+              f"{f' capacity={cfg32.capacity_factor}' if cfg32.num_experts else ''}"
+              f" max|logit diff|/max|logit|={rel:.3e} (<= 1e-4) tokens "
+              f"equal {tok_pf.tolist()} B9 prefill_ms={pf_ms:.3f} "
+              f"teacher-forced {F32_PROMPT} steps in {tf_s:.2f}s{scan}",
+              flush=True)
+        del state32
+
+        # bf16 against f32: the same weights cast, every position's logits
+        drift = dict(p32)
+        if cfg32.modality == "vision":
+            drift["embeds"] = stubs.vision_patch_embeddings(gen_m, cfg32,
+                                                            SERVE_BATCH)
+        cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+        routes.clear()
+        with route_log:
+            lg32 = transformer.forward(params32, cfg32, drift)[0]
+            params16 = cast_params(params32, torch.bfloat16)
+            del params32
+            lg16 = transformer.forward(params16, cfg16, drift)[0]
+        # the control: bf16 with B9 swapped for its plain version (the
+        # reference's arithmetic, p rounded to bf16 before the PV product)
+        with unittest.mock.patch.object(ops, "flash_attention",
+                                        ref.flash_attention):
+            lg_plain = transformer.forward(params16, cfg16, drift)[0]
+        del params16
+        rel16 = rel_diff(lg16, lg32)
+        rel_plain = rel_diff(lg_plain, lg32)
+        # bf16 rounding of the weights and of the residual stream alone
+        # drifts with depth (on the CPU the JAX package's own bf16 forward
+        # of a 12-layer zamba2 at d_model 256 is 5.9e-2 from its f32): the
+        # gate is 3e-2, or twice the plain-attention control's drift where
+        # that is larger, as rwkv6's bf16 gate is twice its plain path's
+        tol = max(FAMILY_BF16_TOL, 2 * rel_plain)
+        flips = f" plain-attention control {rel_plain:.3e}"
+        if cfg32.num_experts:
+            # one route a layer in each run: f32's, then bf16's
+            ids = [torch.sort(idx.reshape(SERVE_BATCH, F32_PROMPT, -1),
+                              dim=-1)[0] for idx, _, _ in routes]
+            n = len(ids) // 2
+            agree = torch.ones((SERVE_BATCH, F32_PROMPT), dtype=torch.bool,
+                               device=dev)
+            for a, b in zip(ids[:n], ids[n:]):
+                agree &= (a == b).all(dim=-1)
+            # an expert flipped by bf16 rounding moves its position by far
+            # more than rounding does, and causal attention carries the
+            # move to every later position of its sequence: the gate holds
+            # the positions whose experts, and those of every earlier
+            # position of their sequence, agree in all layers at 3e-2
+            clean = torch.cumprod(agree.int(), dim=1).bool()
+            if not clean.any():
+                fail(f"{arch} bf16 against f32: every sequence flips an "
+                     f"expert at its first position")
+            rel16 = ((lg16.float() - lg32)[clean].abs().max()
+                     / lg32.abs().max()).item()
+            tol = FAMILY_BF16_TOL
+            flips = (f" on the {int(clean.sum())}/{clean.numel()} positions "
+                     f"with no flipped expert in any layer at or before "
+                     f"them (flipped share {1 - agree.float().mean().item():.4f}"
+                     f"; positions whose own experts agree "
+                     f"{((lg16.float() - lg32)[agree].abs().max() / lg32.abs().max()).item():.3e}"
+                     f"; all positions {rel_diff(lg16, lg32):.3e};{flips})")
+        if not (torch.isfinite(lg16).all() and rel16 <= tol):
+            fail(f"{arch} bf16 against f32: {rel16:.3e} of max |logit| > "
+                 f"{tol:.3e}{flips}")
+        print(f"check bf16-vs-f32 {arch} layers={cfg32.num_layers} prompt="
+              f"{F32_PROMPT}{f' + {prefix(cfg32)} patch embeddings' if prefix(cfg32) else ''}"
+              f" max|logit diff|/max|logit|={rel16:.3e} (<= {tol:.3e})"
+              f"{flips}", flush=True)
+        del lg32, lg16, lg_plain
+
+    # -- 12d. the smoke arches on the card against the CPU, f32 -----------
+    for arch in FAMILY_SMOKE:
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
+                "16"]
+        out_card = serve.main(argv + ["--device", "cuda"])
+        out_cpu = serve.main(argv + ["--device", "cpu"])
+        scfg = get_smoke_arch(arch)
+        p_card, pr_card = serve.init_inputs(scfg, 4, 32, dev)
+        p_cpu, pr_cpu = serve.init_inputs(scfg, 4, 32, "cpu")
+        b_card, b_cpu = {"tokens": pr_card}, {"tokens": pr_cpu}
+        if scfg.modality == "vision":
+            b_cpu["embeds"] = stubs.vision_patch_embeddings(
+                torch.Generator().manual_seed(1), scfg, 4)
+            b_card["embeds"] = b_cpu["embeds"].to(dev)
+        reset_counts()
+        lg_card = transformer.forward(p_card, scfg, b_card,
+                                      last_only=True)[0]
+        counts_only(f"serve {arch} smoke prefill", read_counts(),
+                    attn_layers(scfg))
+        lg_cpu = transformer.forward(p_cpu, scfg, b_cpu, last_only=True)[0]
+        rel = rel_diff(lg_card.cpu(), lg_cpu)
+        same = np.array_equal(np.asarray(out_card), np.asarray(out_cpu))
+        if not (rel <= 1e-4 and same):
+            fail(f"serve {arch} smoke: card against CPU prefill logits "
+                 f"{rel:.3e} of max |logit| (<= 1e-4), tokens equal {same}")
+        print(f"path serve {arch} smoke ({'/'.join(dict.fromkeys(scfg.blocks()))}"
+              f"{f', {scfg.num_experts} experts top-{scfg.experts_per_token}' if scfg.num_experts else ''}"
+              f"{f', {scfg.num_patches} patch embeddings' if prefix(scfg) else ''}"
+              f") f32 card-vs-cpu prefill max|logit diff|/max|logit|="
+              f"{rel:.3e} (<= 1e-4) generated tokens equal "
+              f"({tuple(np.asarray(out_cpu).shape)})", flush=True)
+    print(f"phase model families {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
+    if isinstance(tree, list):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 
 
@@ -2937,9 +3393,10 @@ def main() -> None:
     rows = {}
 
     def record(name, shape, err, fn, plain_fn, lib_fn, nbytes, ops, rate,
-               lib_graph=True, extra=None, slow=False):
+               lib_graph=True, extra=None, slow=False, table=True):
         """``slow``: time the plain and library versions over 2 calls x 5
-        runs (they take tens of ms a call)."""
+        runs (they take tens of ms a call). ``table=False``: print the line
+        and keep the kernel table's row as it was (its path shape)."""
         b_ms, b_by = bound(nbytes, ops, rate)
         ms, graph_ms = timing(fn)
         few = dict(launches=2, reps=5) if slow else {}
@@ -2955,6 +3412,8 @@ def main() -> None:
               f"bound_ms={b_ms:.5f} ({b_by}){more}", flush=True)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        if not table:
+            return
         row.update(shape=shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
                    plain_graph_ms=plain_graph_ms, library_ms=lib_ms,
                    library_graph_ms=lib_graph_ms, bound_ms=b_ms,
@@ -4137,6 +4596,7 @@ def main() -> None:
     serving(dev, rows, record, add, expect_counts, bf16_ulp)
     rwkv_serving(dev, rows, record, add, expect_counts)
     llm_training(dev, add, expect_counts)
+    model_families(dev, rows, record, add, expect_counts, bf16_ulp)
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",

@@ -18,7 +18,7 @@ from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
 from repro_torch.hierarchy.mixing import HierEta
 from repro_torch.ingest.sketches import SketchState
-from repro_torch.models import attention, rwkv, transformer
+from repro_torch.models import attention, mamba, rwkv, transformer
 from repro_torch.optim.adam import FlatAdamState
 
 
@@ -34,32 +34,53 @@ def tensor_from_numpy(value, device) -> torch.Tensor:
 
 
 def transformer_params_from_numpy(tree: dict, device=None) -> dict:
-    """The JAX package's transformer params (a nested dict, layers stacked
-    along a leading L axis under ``"layers"``) -> the same nested dict of
-    tensors, key path for key path, each leaf in its own dtype."""
+    """The JAX package's transformer params (a nested dict: layers stacked
+    along a leading L axis under ``"layers"``, or a list of per-layer dicts
+    under ``"layers_list"`` beside a ``"shared_attn"`` set) -> the same
+    nested dicts and lists of tensors, key path for key path, each leaf in
+    its own dtype."""
     dev = resolve_device(device)
     if not isinstance(tree, dict) or not tree:
         raise ValueError("params must be a non-empty nested dict of arrays")
-    return {name: transformer_params_from_numpy(sub, dev)
-            if isinstance(sub, dict) else tensor_from_numpy(sub, dev)
-            for name, sub in tree.items()}
+    return _tree_from_numpy(tree, dev)
+
+
+def _tree_from_numpy(tree, dev):
+    if isinstance(tree, dict):
+        return {name: _tree_from_numpy(sub, dev) for name, sub in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(sub, dev) for sub in tree]
+    return tensor_from_numpy(tree, dev)
+
+
+def _mix_state_from_numpy(st, dev):
+    """One mix state (read by field name; any leading L axis): a KV cache
+    (``k/v/length``), an rwkv state (``s/x_prev``) or a mamba state
+    (``h/conv``)."""
+    if hasattr(st, "x_prev"):
+        return rwkv.RwkvState(s=tensor_from_numpy(st.s, dev),
+                              x_prev=tensor_from_numpy(st.x_prev, dev))
+    if hasattr(st, "conv"):
+        return mamba.MambaState(h=tensor_from_numpy(st.h, dev),
+                                conv=tensor_from_numpy(st.conv, dev))
+    return attention.KVCache(
+        k=tensor_from_numpy(st.k, dev), v=tensor_from_numpy(st.v, dev),
+        length=torch.tensor(np.asarray(st.length), dtype=torch.int32,
+                            device=dev))
 
 
 def decode_state_from_numpy(state, device=None) -> transformer.DecodeState:
-    """A JAX package ``DecodeState`` of a homogeneous stack (read by field
-    name, stacked along L: ``states.k/v/length`` of a dense stack,
-    ``states.s/x_prev`` of an rwkv stack; ``pos``) -> the port's, each
-    array in its own dtype."""
+    """A JAX package ``DecodeState`` (read by field name: ``states``,
+    stacked along L for a homogeneous stack — ``k/v/length`` of a dense
+    stack, ``s/x_prev`` of an rwkv stack, ``h/conv`` of a mamba stack — or
+    a list of per-layer states for a heterogeneous one; ``pos``) -> the
+    port's, each array in its own dtype."""
     dev = resolve_device(device)
     st = state.states
-    if hasattr(st, "x_prev"):
-        states = rwkv.RwkvState(s=tensor_from_numpy(st.s, dev),
-                                x_prev=tensor_from_numpy(st.x_prev, dev))
+    if isinstance(st, (list, tuple)) and not hasattr(st, "_fields"):
+        states = [_mix_state_from_numpy(one, dev) for one in st]
     else:
-        states = attention.KVCache(
-            k=tensor_from_numpy(st.k, dev), v=tensor_from_numpy(st.v, dev),
-            length=torch.tensor(np.asarray(st.length), dtype=torch.int32,
-                                device=dev))
+        states = _mix_state_from_numpy(st, dev)
     return transformer.DecodeState(
         states=states, pos=torch.tensor(np.asarray(state.pos),
                                         dtype=torch.int32, device=dev))

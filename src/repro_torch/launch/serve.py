@@ -1,5 +1,5 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-autoregressively with the KV caches or rwkv states — the runnable
+autoregressively with the KV caches, rwkv or mamba states — the runnable
 counterpart of the decode dry-run shapes, at reduced size. Params and
 prompts are drawn from a CPU ``torch.Generator`` seeded with 0, then
 moved to the device.
@@ -7,10 +7,13 @@ moved to the device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-``--arch rwkv6-7b`` serves the ssm family. As in the JAX package, the
-prompt is teacher-forced through the decode step, so this driver runs no
-kernel: the prefill step (``steps.make_prefill_step``) is where B9 and
-B10 run.
+``--arch rwkv6-7b`` serves the ssm family; ``mixtral-8x7b`` and
+``dbrx-132b`` the MoE family, ``zamba2-1.2b`` the hybrid (mamba blocks
+and shared attention), ``internvl2-26b`` the vision backbone (text
+prompts: decode takes tokens) and ``musicgen-medium`` the audio decoder.
+As in the JAX package, the prompt is teacher-forced through the decode
+step, so this driver runs no kernel: the prefill step
+(``steps.make_prefill_step``) is where B9 and B10 run.
 """
 from __future__ import annotations
 

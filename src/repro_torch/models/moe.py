@@ -1,0 +1,147 @@
+"""Mixture-of-Experts layer: top-k router + grouped capacity dispatch, the
+counterpart of the JAX package's ``repro.models.moe``.
+
+Tokens are routed under a per-group capacity bound, so every shape is
+static: a slot table of token indices per (expert, capacity slot) is built
+by a scatter, the tokens are gathered into it, the experts run as batched
+products over the expert axis, and each token gathers back its k expert
+outputs. Overflow (token, choice) pairs beyond an expert's capacity are
+dropped (Switch semantics). The expert products are plain ``torch.einsum``
+calls, as the JAX package computes them outside any kernel.
+
+Routing ties keep the lower expert index first, as ``jax.lax.top_k``
+does: the top k of a stable descending sort (``torch.topk`` promises no
+order among equal values). The order within k sets the capacity priority.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+
+def init(generator, cfg: ModelConfig, dtype=torch.float32, device=None):
+    """Router (d, E) in f32 whatever ``dtype``; experts stacked on a
+    leading E axis."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    dev = device or generator.device
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * scale).to(device=dev, dtype=dtype)
+
+    scale = d ** -0.5
+    return {
+        "router": layers._dense_init(generator, (d, e), dtype=torch.float32,
+                                     device=dev),
+        "w_gate": normal((e, d, f), scale),
+        "w_up": normal((e, d, f), scale),
+        "w_down": normal((e, f, d), f ** -0.5),
+    }
+
+
+def _capacity(group_size: int, num_experts: int, top_k: int,
+              factor: float) -> int:
+    cap = int(group_size * top_k * factor / num_experts)
+    return max(cap, top_k)
+
+
+def route(params, cfg: ModelConfig, tokens):
+    """tokens (..., d) -> (probs (..., E) f32, gates (..., k) renormalized
+    to sum 1, expert ids (..., k) int64, highest probability first; ties
+    keep the lower id first)."""
+    logits = tokens.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    gate_vals, idx = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_vals, idx
+
+
+def queue_positions(idx, num_experts: int):
+    """idx (g, gs, k) -> (one-hot mask (g, gs, k, E) f32, position of each
+    (token, choice) in its expert's queue (g, gs, k) int32). Priority:
+    choice rank first, then token order (Switch-style); the positions come
+    from an f32 cumsum of the one-hots, exact below 2**24 entries."""
+    g, gs, k = idx.shape
+    mask = F.one_hot(idx, num_experts).float()
+    mask_r = mask.transpose(1, 2).reshape(g, k * gs, num_experts)
+    pos = (torch.cumsum(mask_r, dim=1) - 1.0).reshape(
+        g, k, gs, num_experts).transpose(1, 2)
+    pos = (pos * mask).sum(dim=-1).to(torch.int32)
+    return mask, pos
+
+
+def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar f32).
+
+    Gather-based dispatch into a static (E, C) slot table per group of
+    ``group_size`` tokens; (token, choice) pairs past an expert's capacity
+    C are dropped."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    gs = min(group_size, t)
+    if t % gs:
+        raise ValueError(f"tokens {t} not divisible by group {gs}")
+    g = t // gs
+    xg = tokens.reshape(g, gs, d)
+    cap = _capacity(gs, e, k, cfg.capacity_factor)
+
+    probs, gate_vals, idx = route(params, cfg, xg)           # (g, gs, k)
+    mask, pos = queue_positions(idx, e)
+    keep = pos < cap
+
+    # slot table: token index per (expert, capacity slot); sentinel gs
+    # points at a zero pad row. Every overflowing (token, choice) writes
+    # slot C of its expert, the column that is sliced off, so duplicate
+    # writes land only there.
+    slot = torch.where(keep, pos, cap)
+    lin = (idx * (cap + 1) + slot).reshape(g, gs * k)
+    tok_ids = torch.arange(gs, device=x.device).repeat_interleave(k)
+    table = torch.full((g, e * (cap + 1)), gs, dtype=torch.int64,
+                       device=x.device)
+    table.scatter_(1, lin, tok_ids.expand(g, gs * k))
+    table = table.reshape(g, e, cap + 1)[..., :cap]          # (g, E, C)
+
+    xpad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
+    g_idx = torch.arange(g, device=x.device)[:, None, None]
+    xin = xpad[g_idx, table]                                  # (g, E, C, d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xin, params["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", xin, params["w_up"])
+    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+
+    # combine: gather each token's k expert outputs, gate-weight, sum
+    eo = expert_out.reshape(g, e * cap, d)
+    lin2 = torch.clamp_max(idx * cap + pos, e * cap - 1)     # (g, gs, k)
+    gathered = eo[g_idx, lin2]                                # (g, gs, k, d)
+    w = (gate_vals * keep).to(x.dtype)
+    out = torch.einsum("gsk,gskd->gsd", w, gathered)
+
+    # Switch load-balance auxiliary loss: E * sum_e f_e * P_e
+    frac_dispatched = mask.sum(dim=2).mean(dim=1)             # (g, E)
+    mean_prob = probs.mean(dim=1)                             # (g, E)
+    aux = (e * (frac_dispatched * mean_prob).sum(dim=-1)).mean()
+    return out.reshape(b, s, d), aux
+
+
+def decode_forward(params, cfg: ModelConfig, x):
+    """Decode path: few tokens (B, 1, d) — every expert runs on them and
+    each token's k are weight-combined; no capacity, nothing dropped."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    tokens = x.reshape(-1, d)
+    _, gate_vals, idx = route(params, cfg, tokens)            # (T, k)
+    sel = F.one_hot(idx, e).float()                           # (T, k, E)
+    w = (sel * gate_vals[..., None]).sum(dim=1)               # (T, E)
+    h = F.silu(torch.einsum("td,edf->tef", tokens, params["w_gate"]))
+    h = h * torch.einsum("td,edf->tef", tokens, params["w_up"])
+    eo = torch.einsum("tef,efd->ted", h, params["w_down"])
+    out = torch.einsum("te,ted->td", w.to(x.dtype), eo)
+    return out.reshape(b, s, d), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)

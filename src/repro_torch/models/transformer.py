@@ -1,12 +1,16 @@
-"""Decoder-only model assembled from a ModelConfig: the homogeneous stacks
-of the JAX package's ``repro.models.transformer``, the dense family
-(llama/qwen-style attention) and the ssm family (rwkv6 blocks).
+"""Decoder-only model assembled from a ModelConfig, the counterpart of the
+JAX package's ``repro.models.transformer``: dense (llama/qwen-style), MoE
+(mixtral/dbrx), SSM (rwkv6), hybrid (zamba2: mamba blocks and one shared
+attention block), and the vision (a prefix of patch embeddings) and audio
+(layernorm/GELU over codec tokens) backbones.
 
-Layer params are stacked along a leading L axis, as the JAX package stacks
-them for its ``lax.scan``; a Python loop over the layers takes the scan's
-place. MoE, hybrid (zamba2) and the vision and audio modalities are not
-ported yet: every entry point refuses them with the ROADMAP item that
-ports them (:data:`repro_torch.registry.MODEL_NOT_PORTED`).
+Homogeneous stacks keep their layer params stacked along a leading L axis,
+as the JAX package stacks them for its ``lax.scan``; a Python loop over
+the layers takes the scan's place. Heterogeneous stacks (zamba2) keep a
+list of per-layer params under ``"layers_list"`` and one ``"shared_attn"``
+param set that every ``shared_attn`` layer uses. On the card every
+attention layer's prefill and training forward runs kernel B9
+(:func:`repro_torch.kernels.ops.flash_attention`).
 
 API:
   init_params(cfg, generator, device, dtype) -> params dict
@@ -21,10 +25,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, rwkv
+from repro_torch.models import attention, layers, mamba, moe, rwkv
 from repro_torch.registry import check_model_ported
 
 
@@ -32,10 +37,17 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _is_homogeneous(cfg: ModelConfig) -> bool:
+    return len(set(cfg.blocks())) == 1
+
+
 def _layer(tree, i: int):
-    """Layer ``i`` of a params subtree stacked along a leading L axis."""
+    """Slot ``i`` along the leading axis of every leaf of a params subtree
+    (dicts and lists)."""
     if isinstance(tree, dict):
         return {name: _layer(sub, i) for name, sub in tree.items()}
+    if isinstance(tree, list):
+        return [_layer(sub, i) for sub in tree]
     return tree[i]
 
 
@@ -60,39 +72,61 @@ def _put(stacked, i: int, tree) -> None:
 # Block init / apply
 # --------------------------------------------------------------------------
 
-def _kind(cfg: ModelConfig) -> str:
-    """The block kind of a homogeneous stack: ``attn`` or ``rwkv``."""
-    return cfg.blocks()[0]
+_MIX = {"attn": attention, "rwkv": rwkv, "mamba": mamba}
 
 
-def _block_init(generator, cfg: ModelConfig, dtype, device):
+def _block_init(generator, cfg: ModelConfig, kind: str, dtype,
+                with_mix: bool = True, device=None):
+    """One block's params; a ``shared_attn`` block has no ``"mix"`` (it
+    uses the model's ``"shared_attn"`` set)."""
     norm_init, _ = layers.make_norm(cfg.norm)
-    mlp_init, _ = layers.make_mlp(cfg.act)
-    mix = rwkv if _kind(cfg) == "rwkv" else attention
-    return {"norm1": norm_init(cfg.d_model, dtype, device),
-            "norm2": norm_init(cfg.d_model, dtype, device),
-            "mix": mix.init(generator, cfg, dtype, device),
-            "ffn": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)}
-
-
-def _apply_block(p, cfg: ModelConfig, x, *, state=None, decode: bool = False,
-                 window_override=None):
-    """Returns (x, new_state)."""
-    _, norm_fn = layers.make_norm(cfg.norm)
-    _, mlp_fn = layers.make_mlp(cfg.act)
-    h = norm_fn(p["norm1"], x)
-    if _kind(cfg) == "rwkv":
-        mix_out, new_state = rwkv.forward(p["mix"], cfg, h, state)
-    elif decode:
-        mix_out, new_state = attention.decode_step(p["mix"], cfg, h, state,
-                                                   window_override)
+    p = {"norm1": norm_init(cfg.d_model, dtype, device),
+         "norm2": norm_init(cfg.d_model, dtype, device)}
+    if with_mix and kind in _MIX:
+        p["mix"] = _MIX[kind].init(generator, cfg, dtype, device)
+    if cfg.num_experts:
+        p["ffn"] = moe.init(generator, cfg, dtype, device)
     else:
-        mix_out = attention.forward(p["mix"], cfg, h,
-                                    window_override=window_override)
-        new_state = state
+        mlp_init, _ = layers.make_mlp(cfg.act)
+        p["ffn"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _apply_ffn(p, cfg: ModelConfig, x, decode: bool, group_size: int):
+    if cfg.num_experts:
+        if decode:
+            return moe.decode_forward(p["ffn"], cfg, x)
+        return moe.forward(p["ffn"], cfg, x, group_size)
+    _, mlp_fn = layers.make_mlp(cfg.act)
+    return mlp_fn(p["ffn"], x), torch.zeros((), dtype=torch.float32,
+                                            device=x.device)
+
+
+def _apply_block(p, cfg: ModelConfig, kind: str, x, *, shared=None,
+                 state=None, decode: bool = False,
+                 window_override=None, group_size: int = 2048):
+    """Returns (x, aux, new_state)."""
+    _, norm_fn = layers.make_norm(cfg.norm)
+    mix_params = shared if shared is not None else p["mix"]
+    h = norm_fn(p["norm1"], x)
+    if kind in ("attn", "shared_attn"):
+        if decode:
+            mix_out, new_state = attention.decode_step(
+                mix_params, cfg, h, state, window_override)
+        else:
+            mix_out = attention.forward(mix_params, cfg, h,
+                                        window_override=window_override)
+            new_state = state
+    elif kind == "rwkv":
+        mix_out, new_state = rwkv.forward(mix_params, cfg, h, state)
+    elif kind == "mamba":
+        mix_out, new_state = mamba.forward(mix_params, cfg, h, state)
+    else:
+        raise ValueError(kind)
     x = x + mix_out
     h = norm_fn(p["norm2"], x)
-    return x + mlp_fn(p["ffn"], h), new_state
+    ffn_out, aux = _apply_ffn(p, cfg, h, decode, group_size)
+    return x + ffn_out, aux, new_state
 
 
 # --------------------------------------------------------------------------
@@ -103,12 +137,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None, dtype=None):
     """Random params of ``cfg``, drawn from ``generator`` (a CPU generator
     seeded with 0 when None) on the generator's device and moved to
-    ``device`` (None means ``"cuda"``) in ``dtype`` (None: the config's)."""
+    ``device`` (None means ``"cuda"``) in ``dtype`` (None: the config's).
+    The reference's keys: ``"layers"`` stacked along L for a homogeneous
+    stack; ``"layers_list"`` and ``"shared_attn"`` for a heterogeneous
+    one."""
     check_model_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(0)
+    kinds = cfg.blocks()
     norm_init, _ = layers.make_norm(cfg.norm)
     params = {
         "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
@@ -119,14 +157,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         params["lm_head"] = {
             "table": layers._dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                         scale=0.02, dtype=dtype, device=dev)}
-    # drawn layer by layer into the stacked tensors: one copy of the
-    # weights at a time (rwkv6-7b in f32 is 35.5 GB)
-    first = _block_init(gen, cfg, dtype, dev)
-    params["layers"] = _empty_stack(first, cfg.num_layers)
-    _put(params["layers"], 0, first)
-    del first
-    for i in range(1, cfg.num_layers):
-        _put(params["layers"], i, _block_init(gen, cfg, dtype, dev))
+    if _is_homogeneous(cfg):
+        # drawn layer by layer into the stacked tensors: one copy of the
+        # weights at a time (rwkv6-7b in f32 is 35.5 GB)
+        first = _block_init(gen, cfg, kinds[0], dtype, device=dev)
+        params["layers"] = _empty_stack(first, cfg.num_layers)
+        _put(params["layers"], 0, first)
+        del first
+        for i in range(1, cfg.num_layers):
+            _put(params["layers"], i,
+                 _block_init(gen, cfg, kinds[0], dtype, device=dev))
+    else:
+        params["layers_list"] = [
+            _block_init(gen, cfg, kind, dtype,
+                        with_mix=kind != "shared_attn", device=dev)
+            for kind in kinds]
+        if "shared_attn" in kinds:
+            params["shared_attn"] = attention.init(gen, cfg, dtype, dev)
     return params
 
 
@@ -134,33 +181,65 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # Forward (train / prefill)
 # --------------------------------------------------------------------------
 
+def _blocks(params, cfg: ModelConfig):
+    """(kind, block params, shared mix params or None) of each layer."""
+    kinds = cfg.blocks()
+    if _is_homogeneous(cfg):
+        return [(kinds[0], _layer(params["layers"], i), None)
+                for i in range(cfg.num_layers)]
+    return [(kind, params["layers_list"][i],
+             params.get("shared_attn") if kind == "shared_attn" else None)
+            for i, kind in enumerate(kinds)]
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
+            group_size: int = 2048, remat: bool = False,
             last_only: bool = False):
-    """batch: {"tokens": (B, S) int}. Returns (logits (B, S_out, V) f32,
-    aux scalar). last_only: unembed only the final position (prefill
-    serving — avoids the (B,S,V) logits). Differentiable: on the card the
-    attention and wkv kernels run the forward and the backward
-    differentiates their plain versions
+    """batch: {"tokens": (B, S) int} (+ "embeds": (B, P, d) for a vision
+    model, a prefix before the text). Returns (logits (B, S_out, V) f32
+    over the text positions, aux scalar: the MoE load-balance loss summed
+    over layers). ``group_size``: tokens per MoE routing group.
+    ``remat``: recompute each block in the backward
+    (``torch.utils.checkpoint``). last_only: unembed only the final
+    position (prefill serving — avoids the (B,S,V) logits).
+    Differentiable: on the card the attention and wkv kernels run the
+    forward and the backward differentiates their plain versions
     (:func:`repro_torch.kernels.ops.flash_attention`,
     :func:`repro_torch.kernels.ops.rwkv6_scan`)."""
     check_model_ported(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(_dtype(cfg))
-    for i in range(cfg.num_layers):
-        x, _ = _apply_block(_layer(params["layers"], i), cfg, x,
-                            window_override=window_override)
+    n_text = tokens.shape[1]
+    vision = cfg.modality == "vision" and "embeds" in batch
+    if vision:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p, shared in _blocks(params, cfg):
+        def blk(p, h, sh, kind=kind):
+            out, a, _ = _apply_block(p, cfg, kind, h, shared=sh,
+                                     window_override=window_override,
+                                     group_size=group_size)
+            return out, a
+
+        if remat:
+            x, a = checkpoint(blk, p, x, shared, use_reentrant=False)
+        else:
+            x, a = blk(p, x, shared)
+        aux = aux + a
     _, norm_fn = layers.make_norm(cfg.norm)
     x = norm_fn(params["final_norm"], x)
+    if vision:
+        x = x[:, -n_text:, :]                      # loss on text positions
     if last_only:
         x = x[:, -1:, :]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = layers.unembed(head, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.unembed(head, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
     """Next-token cross entropy (labels provided by the data pipeline), the
-    training loss: logsumexp minus the label's logit, masked mean."""
+    training loss: logsumexp minus the label's logit, masked mean, plus
+    ``router_aux_coef`` times the MoE load-balance loss."""
     logits, aux = forward(params, cfg, batch, **kw)
     labels = batch["labels"].long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -193,28 +272,43 @@ def node_losses(params, cfg: ModelConfig, batch: dict):
 # --------------------------------------------------------------------------
 
 class DecodeState(NamedTuple):
-    # per-layer mix states stacked along L: KV caches (attn) or wkv
-    # states (rwkv)
-    states: attention.KVCache | rwkv.RwkvState
+    # per-layer mix states: stacked along L for a homogeneous stack (KV
+    # caches, rwkv or mamba states), a list for a heterogeneous one
+    states: object
     pos: torch.Tensor
+
+
+def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 dtype, window, device=None):
+    if kind in ("attn", "shared_attn"):
+        return attention.init_cache(cfg, batch, max_len, dtype, window,
+                                    device)
+    if kind == "rwkv":
+        return rwkv.init_state(cfg, batch, device)
+    if kind == "mamba":
+        return mamba.init_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 def init_decode(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 window_override=None, device=None) -> DecodeState:
     """Empty per-layer states for ``batch`` sequences of up to ``max_len``
     tokens: KV caches (a ring buffer of the window's size when a window
-    applies) or zero rwkv states (``max_len`` unused: O(1) in length)."""
+    applies), zero rwkv or mamba states (``max_len`` unused: O(1) in
+    length)."""
     check_model_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     window = window_override if window_override is not None \
         else cfg.sliding_window
-    if _kind(cfg) == "rwkv":
-        one = rwkv.init_state(cfg, batch, dev)
+    kinds = cfg.blocks()
+    if _is_homogeneous(cfg):
+        one = _layer_state(cfg, kinds[0], batch, max_len, dtype, window, dev)
+        states = type(one)(
+            *(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))
     else:
-        one = attention.init_cache(cfg, batch, max_len, dtype, window, dev)
-    states = type(one)(
-        *(t.expand((cfg.num_layers,) + t.shape).clone() for t in one))
+        states = [_layer_state(cfg, kind, batch, max_len, dtype, window, dev)
+                  for kind in kinds]
     return DecodeState(states=states,
                        pos=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -224,24 +318,30 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState,
                 tokens: torch.Tensor, *, window_override=None):
     """tokens: (B,) int — one new token per sequence.
     Returns (logits (B, V) f32, new DecodeState). KV caches of ``state``
-    are updated in place (see :func:`attention.decode_step`); rwkv states
-    are not: the new state holds new tensors, as in the JAX package."""
+    are updated in place (see :func:`attention.decode_step`); rwkv and
+    mamba states are not: the new state holds new tensors, as in the JAX
+    package."""
     check_model_ported(cfg)
     x = layers.embed(params["embed"], tokens[:, None]).to(_dtype(cfg))
-    kind = type(state.states)
+    homogeneous = _is_homogeneous(cfg)
+    kind_of = type(state.states) if homogeneous else None
     news = []
-    for i in range(cfg.num_layers):
-        x, new = _apply_block(_layer(params["layers"], i), cfg, x,
-                              state=kind(*(t[i] for t in state.states)),
-                              decode=True, window_override=window_override)
+    for i, (kind, p, shared) in enumerate(_blocks(params, cfg)):
+        st = kind_of(*(t[i] for t in state.states)) if homogeneous \
+            else state.states[i]
+        x, _, new = _apply_block(p, cfg, kind, x, shared=shared, state=st,
+                                 decode=True,
+                                 window_override=window_override)
         news.append(new)
     _, norm_fn = layers.make_norm(cfg.norm)
     x = norm_fn(params["final_norm"], x)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = layers.unembed(head, x)[:, 0, :]
-    if kind is rwkv.RwkvState:
-        states = rwkv.RwkvState(*(torch.stack(t) for t in zip(*news)))
-    else:
+    if not homogeneous:
+        states = news
+    elif kind_of is attention.KVCache:
         states = attention.KVCache(state.states.k, state.states.v,
                                    torch.stack([n.length for n in news]))
+    else:
+        states = kind_of(*(torch.stack(t) for t in zip(*news)))
     return logits, DecodeState(states=states, pos=state.pos + 1)

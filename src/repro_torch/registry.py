@@ -22,11 +22,11 @@ caller.
   (:mod:`repro_torch.ingest.scenarios`).
 
 Every ``FedConfig`` option of the JAX package is ported, so
-:data:`NOT_PORTED` is empty. Its model-side twin, :data:`MODEL_NOT_PORTED`,
-lists the model families, block kinds and modalities of ``ModelConfig``
-that ``models/transformer.py`` does not build yet, and
-:func:`check_model_ported` refuses them with the ROADMAP item that will
-port them.
+:data:`NOT_PORTED` is empty. So is its model-side twin,
+:data:`MODEL_NOT_PORTED`: ``models/transformer.py`` builds every model
+family, block kind and modality of ``ModelConfig``.
+:func:`check_model_ported` stays as the mechanism that would refuse one,
+naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -122,22 +122,10 @@ redundancy_scenarios = Registry("redundancy scenario")
 # FedConfig option of the JAX package is ported
 NOT_PORTED: dict = {}
 
-_MOE = "ROADMAP queue A item 23c (MoE, mamba, hybrid, vision and audio)"
-
-# (ModelConfig field, value) -> the ROADMAP item that ports it; the
-# transformer builds homogeneous attention (dense) and rwkv (ssm) stacks
-# over text
-MODEL_NOT_PORTED = {
-    ("family", "moe"): _MOE,
-    ("family", "hybrid"): _MOE,
-    ("family", "vlm"): _MOE,
-    ("family", "audio"): _MOE,
-    ("block", "mamba"): _MOE,
-    ("block", "shared_attn"): _MOE,
-    ("modality", "vision"): _MOE,
-    ("modality", "audio"): _MOE,
-    ("num_experts", None): _MOE,
-}
+# (ModelConfig field, value) -> the ROADMAP item that ports it: empty, the
+# transformer builds every family, block kind and modality of the JAX
+# package (dense, moe, ssm, hybrid, vlm, audio)
+MODEL_NOT_PORTED: dict = {}
 
 
 def check_model_ported(cfg) -> None:

@@ -324,19 +324,21 @@ def test_unported_transports_are_refused(paper_data, transport):
 
 
 def test_token_lm_config_and_model_free_config_are_refused():
-    # the token-LM loss is derived from the config; a config of a family
-    # the port's transformer does not build is refused at compile
+    # the token-LM loss is derived from the config; mixtral (ROADMAP item
+    # 23c, refused at compile until it was ported) compiles and runs a
+    # round through run_experiment (Experiment.compile, then run)
     cfg = tbase.RunConfig(model=get_smoke_arch("mixtral-8x7b"),
                           fed=tbase.FedConfig(num_nodes=4, local_steps=1),
                           train=tbase.TrainConfig(batch_size=4))
-    data = {"tokens": np.zeros((4, 2, 8), np.int32),
-            "labels": np.zeros((4, 2, 8), np.int32)}
-    with pytest.raises(NotImplementedError, match="item 23c"):
-        texp.Experiment(cfg, device="cpu").compile(
-            data, np.zeros((4, 2, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="item 23c"):
-        texp.run_experiment(cfg, data, np.zeros((4, 2, 2), np.int32), 1,
-                            device="cpu")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.model.vocab_size, (4, 2, 9), np.int32)
+    data = {"tokens": tokens[..., :-1], "labels": tokens[..., 1:]}
+    items = np.zeros((4, 2, 2), np.int32)
+    result = texp.run_experiment(cfg, data, items, 1, device="cpu")
+    assert result.state.round == 1
+    assert tuple(result.metrics["loss"].shape) == (1, 4)
+    assert torch.isfinite(result.metrics["loss"]).all()
+    assert registry.MODEL_NOT_PORTED == {}
     assert ("model", "token_lm") not in registry.NOT_PORTED
     exp = texp.Experiment(tbase.RunConfig(model=None), device="cpu")
     with pytest.raises(ValueError, match="loss_fn/init_params"):

@@ -11,6 +11,8 @@ Tolerances: the loss within 1e-5 relative; each gradient leaf within 1e-4
 reference factorises it) of that leaf's max |value|; the three rounds'
 losses within 1e-5 relative and the params within 1e-5 of max |param|.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -302,9 +304,30 @@ def test_model_derived_experiment_runs_and_resumes_bit_for_bit(tmp_path):
 
 
 def test_model_derived_experiment_trains_rwkv6_and_refuses_moe():
+    """rwkv6 trains; so does mixtral (ROADMAP item 23c, refused until it
+    was ported): one round with a finite loss, and its MoE load-balance
+    loss is nonzero and reaches the router's gradient."""
     exp, data, items = _lm_experiment("rwkv6-7b")
     result = exp.compile(data, items).run(1)
     assert torch.isfinite(result.metrics["loss"]).all()
     exp, data, items = _lm_experiment("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="item 23c"):
-        exp.compile(data, items)
+    session = exp.compile(data, items)
+    before = session.state.buf.clone()
+    result = session.run(1)
+    assert torch.isfinite(result.metrics["loss"]).all()
+    assert not torch.equal(result.state.buf, before)
+    cfg = exp.config.model
+    params = flatten.tree_map(lambda t: t.detach().clone(),
+                              ttransformer._layer(result.final_params, 0))
+    router = params["layers"]["ffn"]["router"].requires_grad_(True)
+    batch = {"tokens": torch.as_tensor(data["tokens"][0, :B]),
+             "labels": torch.as_tensor(data["labels"][0, :B])}
+    _, aux = ttransformer.forward(params, cfg, batch)
+    assert aux.item() > 0.0
+    (grad_aux,) = torch.autograd.grad(aux, router)
+    assert float(grad_aux.abs().max()) > 0.0
+    loss = ttransformer.loss_fn(params, cfg, batch)
+    plain = ttransformer.loss_fn(
+        params, dataclasses.replace(cfg, router_aux_coef=0.0), batch)
+    assert abs((loss - plain).item() - cfg.router_aux_coef * aux.item()) \
+        <= 1e-6 * loss.item()

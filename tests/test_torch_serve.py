@@ -10,7 +10,9 @@ teacher-forced over the prompt gives the reference's token after every
 position and, after the last, the prefill token; ``serve.main`` (the
 port's, with its draws replaced by the reference's ``PRNGKey(0)`` params
 and prompts) prints the generations the reference's ``main`` prints, with
-and without a sliding window; the GQA variant runs the same loop.
+and without a sliding window, and for the smoke mixtral-8x7b, dbrx-132b,
+zamba2-1.2b, internvl2-26b and musicgen-medium; the GQA variant runs the
+same loop.
 """
 import dataclasses
 import re
@@ -115,9 +117,16 @@ def _printed(capsys) -> np.ndarray:
     return np.array([[int(t) for t in r.split(",")] for r in rows])
 
 
+# the MoE, hybrid, vision and audio families (ROADMAP item 23c) after the
+# dense and ssm ones
+FAMILIES = ["mixtral-8x7b", "dbrx-132b", "zamba2-1.2b", "internvl2-26b",
+            "musicgen-medium"]
+
+
 @pytest.mark.parametrize("arch,prompt,window", [
     ("qwen3-1.7b", PROMPT, None), ("qwen3-1.7b", PROMPT, 5),
-    ("rwkv6-7b", RWKV_PROMPT, None)], ids=["None", "5", "rwkv6-7b"])
+    ("rwkv6-7b", RWKV_PROMPT, None)] + [(a, PROMPT, None) for a in FAMILIES],
+    ids=["None", "5", "rwkv6-7b"] + FAMILIES)
 def test_serve_main_prints_the_reference_generations(arch, prompt, window,
                                                      capsys, monkeypatch):
     argv = ["--arch", arch, "--batch", str(B), "--prompt-len",

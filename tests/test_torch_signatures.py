@@ -4,15 +4,18 @@ comparison (no JAX import) of every top-level function and class method of
 ``src/repro/experiment.py``, ``src/repro/checkpointing/checkpoint.py``,
 ``src/repro/launch/train.py``, ``src/repro/data/pipeline.py``,
 ``src/repro/data/synthetic.py``, ``src/repro/mobility/mixing.py``,
-``src/repro/core/transport.py``, ``src/repro/core/sketch.py`` and the three
-modules of ``src/repro/ingest/`` with its twin in ``src/repro_torch``, and
-of the trainer's batched driver and stack builder nested in
-``build_trainer``. The
-leading positional parameters and their defaults must match, after dropping the reference's switches that the port
+``src/repro/core/transport.py``, ``src/repro/core/sketch.py``, the three
+modules of ``src/repro/ingest/`` and ``src/repro/models/transformer.py``,
+``moe.py``, ``mamba.py`` and ``stubs.py`` with its twin in
+``src/repro_torch``, and of the trainer's batched driver and stack builder
+nested in ``build_trainer``. The leading positional parameters and their
+defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
-``interpret``, ``transport``, ``flat_local``); the reference's
+``interpret``, ``transport``, ``flat_local``, ``unroll``) and reading the
+reference's ``rng`` as the port's ``generator``; the reference's
 keyword-only parameters must be keyword-only in the port with the same
-defaults. Port-only parameters (``device``, ``s0``) come after. This check
+defaults. Port-only parameters (``device``, ``s0``) come after;
+``transformer.init_params`` keeps its own pinned order. This check
 found that ``ops.rwkv6_scan`` took ``s0`` where the reference takes
 ``chunk``, and ``build_trainer`` ``device`` where it takes ``eval_fn``."""
 import ast
@@ -37,7 +40,12 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
          ("repro/core/sketch.py", "repro_torch/core/sketch.py"),
          ("repro/ingest/scenarios.py", "repro_torch/ingest/scenarios.py"),
          ("repro/ingest/sketches.py", "repro_torch/ingest/sketches.py"),
-         ("repro/ingest/weighting.py", "repro_torch/ingest/weighting.py")]
+         ("repro/ingest/weighting.py", "repro_torch/ingest/weighting.py"),
+         ("repro/models/transformer.py",
+          "repro_torch/models/transformer.py"),
+         ("repro/models/moe.py", "repro_torch/models/moe.py"),
+         ("repro/models/mamba.py", "repro_torch/models/mamba.py"),
+         ("repro/models/stubs.py", "repro_torch/models/stubs.py")]
 # whole functions that are dispatch switches of the reference (its CPU
 # wire-cast gate among them), and the mesh path of the ring transport with
 # its dtype helper, which wait for ROADMAP queue A item 24
@@ -47,8 +55,21 @@ DROPPED_CLASSES: set = set()
 DROPPED_METHODS: set = set()
 # the same default in each package's spelling
 SAME_DEFAULT = {"jnp.float32": "torch.float32"}
+# ``unroll`` (the transformer's forward and decode step): straight-line HLO
+# so that XLA's cost analysis counts every layer of a scanned stack, a
+# switch of the reference's dry-run with no meaning outside XLA
 DROPPED_PARAMS = {"force_kernel", "use_pallas", "interpret", "transport",
-                  "flat_local"}
+                  "flat_local", "unroll"}
+# the same parameter in each package's spelling: a torch.Generator takes
+# the place of a JAX PRNG key
+SAME_NAME = {"rng": "generator"}
+# the port's own positional order, pinned: ``transformer.init_params``
+# takes the config first and the generator optional (a CPU generator
+# seeded with 0), as every caller of the port has called it since the
+# dense slice; the reference takes (rng, cfg, dtype=None)
+REORDERED = {("repro/models/transformer.py", "init_params"): [
+    ("cfg", None), ("generator", "None"), ("device", "None"),
+    ("dtype", "None")]}
 
 
 def _functions(rel: str) -> dict[str, ast.arguments]:
@@ -74,7 +95,8 @@ def _positional(args: ast.arguments) -> list[tuple[str, str | None]]:
     defaults = [None] * (len(params) - len(args.defaults)) + \
         [SAME_DEFAULT.get(ast.unparse(d), ast.unparse(d))
          for d in args.defaults]
-    return [(p.arg, d) for p, d in zip(params, defaults)]
+    return [(SAME_NAME.get(p.arg, p.arg), d)
+            for p, d in zip(params, defaults)]
 
 
 def _keyword_only(args: ast.arguments) -> dict[str, str | None]:
@@ -89,8 +111,11 @@ CASES = [(ref_rel, port_rel, name)
 # BatchedSession (7), Experiment.compile_batch, _run_sweep and the ten
 # functions of mobility/mixing.py; then IngestCallback (2), the 22 of
 # core/transport.py, the 15 of core/sketch.py and the 7 + 5 + 7 of
-# ingest/scenarios.py, sketches.py and weighting.py
-CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7
+# ingest/scenarios.py, sketches.py and weighting.py; then the 11 of
+# models/transformer.py, the 4 of moe.py, the 9 of mamba.py and the 2 of
+# stubs.py
+CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7 + 11 + 4 \
+    + 9 + 2
 
 
 def test_every_reference_function_is_compared():
@@ -107,7 +132,9 @@ def test_every_reference_function_is_compared():
             "stack_variant_stacks", "IngestCallback.on_run_end",
             "GossipTransport.exchange", "RingShardTransport.exchange",
             "wire_codec", "simhash", "compile_plan", "slot_hashes",
-            "weighted_indices", "reweight_eta"} <= names
+            "weighted_indices", "reweight_eta", "init_params", "init_decode",
+            "decode_forward", "chunked", "scan_reference",
+            "vision_patch_embeddings"} <= names
     assert len(CASES) == CASE_COUNT
 
 
@@ -119,6 +146,9 @@ def test_port_twin_keeps_the_reference_signature(ref_rel, port_rel, name):
     want = [(p, d) for p, d in _positional(_functions(ref_rel)[name])
             if _kept(p)]
     got = _positional(port[name])
+    if (ref_rel, name) in REORDERED:
+        want = REORDERED[ref_rel, name]
+        assert got == want, (name, got, want)
     assert got[:len(want)] == want, (name, got, want)
     want_kw = {p: d for p, d in _keyword_only(_functions(ref_rel)[name])
                .items() if _kept(p)}

@@ -90,7 +90,7 @@ class _Built(Exception):
 
 
 # ROADMAP items ported after their flags were first refused here
-_PORTED = {"item 19", "item 20"}
+_PORTED = {"item 19", "item 20", "item 23c"}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -104,7 +104,8 @@ _PORTED = {"item 19", "item 20"}
 def test_unported_options_are_refused_naming_their_item(monkeypatch, flags,
                                                         item):
     """Ported flags build their trainer and state (the run stops before
-    its first round); the others raise naming their ROADMAP item."""
+    its first round); the others raise naming their ROADMAP item.
+    ``--arch mixtral-8x7b`` builds since item 23c was ported."""
     argv = QUICK + list(flags) + ["--device", "cpu"]
     if item not in _PORTED:
         with pytest.raises(NotImplementedError, match=item):
@@ -125,7 +126,13 @@ def test_unported_options_are_refused_naming_their_item(monkeypatch, flags,
         ttrain.main(argv)
     (fed, trainer, state), = built
     assert trainer.device == torch.device("cpu")
-    if "--redundancy" in flags:
+    if "--arch" in flags:
+        # mixtral (ROADMAP item 23c, refused until it was ported): the
+        # MoE transformer's params, router and experts, in the buffer
+        assert "layers/ffn/router" in state.layout.names
+        assert state.layout.shapes[state.layout.names.index(
+            "layers/ffn/w_gate")][:2] == (2, 4)
+    elif "--redundancy" in flags:
         assert fed.ingest.scenario == "duplicate_heavy"
         assert fed.ingest.weighting == "both"
         assert isinstance(state.istate, SketchState)
