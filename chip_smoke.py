@@ -130,8 +130,19 @@ the sequential scan), bf16 against f32 on the same weights (3e-2 of max
 |logit|, or twice a plain-attention control's drift where larger; mixtral
 on the positions with no flipped expert at or before them) and the five
 smoke arches (mixtral, dbrx, zamba2, internvl2, musicgen) through
-``serve.main`` on the card against the CPU. Then the loaded
-libraries by digest; the kernel
+``serve.main`` on the card against the CPU. Then the mesh train step
+(``launch/steps.py::make_fed_train_step``, the reference's step for
+full-size LLM training) at full width: mixtral-8x7b (1 layer),
+internvl2-26b (1 layer, + 1,024 stub patch embeddings), zamba2-1.2b (30
+layers), musicgen-medium (48) and rwkv6-7b (2), bf16 params with f32
+moments on an F=2 ring, remat "full", 2 x 512 text tokens a node, a
+learning rate warmed up over 3 timed steps and 1 profiled step (each
+family's state bytes reckoned by ``fed_state_struct`` before it is
+allocated, peak memory, B9/B10 launches as counted, the busy share and a
+model-FLOPs share of the bf16 peak; falling losses; mixtral's router
+moved); internvl2's loss and gradient with B9 in the forward against its
+plain version (a bf16-vs-f32 control); each family's smoke width on F=3
+nodes in f32, card against CPU. Then the loaded libraries by digest; the kernel
 table (ten kernels, B1 and B2 also with their variant axis) as one JSON
 line; and the verdict as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
@@ -260,6 +271,21 @@ FAMILY_SMOKE = ("mixtral-8x7b", "dbrx-132b", "zamba2-1.2b", "internvl2-26b",
                 "musicgen-medium")
 FAMILY_BF16_TOL = 3e-2        # bf16 against f32, of max |logit| (qwen3's)
 WIDE_CAPACITY = 8.0           # tests/test_models.py:65: no token dropped
+# the mesh train step (launch/steps.py::make_fed_train_step) at full width:
+# bf16 params, f32 moments, remat="full", a learning rate warmed up to
+# MESH_LR over the steps, an F=2 ring, 2 sequences of 512
+# text tokens a node (internvl2: + 1,024 stub patch embeddings), 3 timed
+# steps and 1 profiled step; depth cut so that F=2 nodes' state fits the
+# card: arch -> layers (None: every layer)
+MESH_F, MESH_BATCH, MESH_SEQ = 2, 2, 512
+MESH_STEPS, MESH_LR = 3, 1e-4
+MESH_DEPTH = {"mixtral-8x7b": 1, "internvl2-26b": 1, "zamba2-1.2b": 30,
+              "musicgen-medium": None, "rwkv6-7b": 2}
+MESH_RATIOS = (0.4, 0.8)      # the nodes' CND distinct ratios
+MESH_SMOKE_F = 3              # the smoke-width check: F=3, f32, 2 steps
+MESH_SMOKE_TOL = 1e-4         # card against CPU, of max |value| a tree
+MESH_LOSS_TOL = 1e-2          # internvl2 B9 forward against plain, relative
+MESH_GRAD_TOL = 3e-2          # its gradient, of max |value| a leaf
 
 
 def fail(msg: str) -> None:
@@ -3258,6 +3284,347 @@ def model_families(dev, rows, record, add, expect_counts, bf16_ulp) -> None:
           flush=True)
 
 
+def mesh_state(cfg, f: int, gen, dev, ratios):
+    """A MeshFedState of ``f`` nodes of ``cfg``: each node's params drawn
+    from ``gen`` on its device into stacked (F, ...) leaves (one node's
+    copy at a time), zero f32 moments, step counters at 0."""
+    from repro_torch.core import flatten
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamState
+    stacked = paths = None
+    for k in range(f):
+        pairs = flatten.leaves_with_paths(
+            transformer.init_params(cfg, gen, device=dev))
+        if stacked is None:
+            paths = [path for path, _ in pairs]
+            stacked = [leaf.new_empty((f,) + tuple(leaf.shape))
+                       for _, leaf in pairs]
+        for out, (_, leaf) in zip(stacked, pairs):
+            out[k] = leaf
+        del pairs
+
+    def zeros():
+        return flatten.build_tree(paths, [
+            torch.zeros_like(leaf, dtype=torch.float32) for leaf in stacked])
+
+    return steps.MeshFedState(
+        flatten.build_tree(paths, stacked),
+        AdamState(torch.zeros(f, dtype=torch.int32, device=dev), zeros(),
+                  zeros()),
+        torch.tensor(ratios, dtype=torch.float32, device=dev))
+
+
+def mesh_batch(cfg, f: int, batch: int, seq: int, seed: int, dev) -> dict:
+    """``f`` nodes' training batch: token_lm sequences of ``seq`` + 1
+    tokens (tokens and next-token labels), a vision model's stub patch
+    embeddings before the text."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import stubs
+    seqs = np.stack([synthetic.token_lm(seed=seed + k, n_seqs=batch,
+                                        seq_len=seq, vocab=cfg.vocab_size).x
+                     for k in range(f)])
+    out = {"tokens": torch.tensor(seqs[..., :-1], device=dev),
+           "labels": torch.tensor(seqs[..., 1:], device=dev)}
+    if cfg.modality == "vision":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        out["embeds"] = torch.stack([stubs.vision_patch_embeddings(
+            gen, cfg, batch) for _ in range(f)])
+    return out
+
+
+def tree_rel(got, want) -> float:
+    """max |got - want| over a tree's leaves, over the tree's max |want|."""
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    top = max(w.float().abs().max().item() for _, w in pairs)
+    return max((g.float().cpu() - w.float().cpu()).abs().max().item()
+               for g, w in pairs) / top
+
+
+def mesh_train(dev, add, expect_counts, smi) -> None:
+    """The federated mesh train step (``launch/steps.py``:
+    ``ring_consensus_roll`` and ``make_fed_train_step``, the reference's
+    step for full-size LLM training) at full width: mixtral-8x7b (1 layer),
+    internvl2-26b (1 layer, 1,024 stub patch embeddings before the text),
+    zamba2-1.2b (30 layers, five periods of 5 mamba blocks and a shared
+    attention block), musicgen-medium (all 48 layers) and rwkv6-7b (2
+    layers), in bf16 with f32 moments on an F=2 ring, remat "full", 2 x
+    512 tokens a node, 3 timed steps and 1 profiled, B9 in every attention
+    layer's forward and B10 in every wkv scan; each family's smoke width
+    on F=3 nodes in f32 on the card against the CPU; internvl2's loss and
+    gradient with B9 in the forward against its plain version."""
+    from repro_torch.configs.base import (FedConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flatten
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline, steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import schedules
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase mesh train starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+    # a linear warmup to MESH_LR over the steps (a sign-sized Adam step at
+    # the full rate first overshoots at these widths)
+    train = TrainConfig(learning_rate=schedules.cosine(
+        MESH_LR, MESH_STEPS + 1, 100), remat="full")
+    fed = FedConfig(num_nodes=MESH_F)
+
+    def kernel_layers(cfg) -> dict:
+        """Launches of B9 and B10 one node's training forward makes; the
+        backward's remat recomputes each block's forward, kernels and all,
+        so a node's step launches each twice."""
+        kinds = cfg.blocks()
+        return {"flash_attention": sum(k in ("attn", "shared_attn")
+                                       for k in kinds),
+                "rwkv6_scan": sum(k == "rwkv" for k in kinds)}
+
+    for arch, layers in MESH_DEPTH.items():
+        cfg = dataclasses.replace(cut_depth(get_arch(arch), layers),
+                                  dtype="bfloat16")
+        struct = steps.fed_state_struct(cfg, MESH_F, train)
+        struct_leaves = (tree_leaves(struct.params)
+                         + tree_leaves(struct.opt.m)
+                         + tree_leaves(struct.opt.v)
+                         + [struct.opt.step, struct.ratios])
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in struct_leaves)
+        n_params = sum(t.numel() for t in tree_leaves(struct.params)) \
+            // MESH_F
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(30)
+        t0 = time.perf_counter()
+        state = mesh_state(cfg, MESH_F, gen, dev, MESH_RATIOS)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the caching allocator hands a large request a whole block when
+        # less than 1 MiB of it would be left: up to 1 MiB over, a leaf
+        got_bytes = torch.cuda.memory_allocated() - base
+        if not state_bytes <= got_bytes <= state_bytes + 2 ** 20 * len(
+                struct_leaves):
+            fail(f"mesh train {arch}: the state holds {got_bytes} bytes, "
+                 f"fed_state_struct reckons {state_bytes}")
+        batch = mesh_batch(cfg, MESH_F, MESH_BATCH, MESH_SEQ, 30, dev)
+        step = steps.make_fed_train_step(cfg, fed, train)
+        reset_counts()
+        step_ms, losses = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        per_node = kernel_layers(cfg)
+        expect = {name: 0 for name in counted()}
+        for name, n in per_node.items():
+            expect[name] = 2 * n * MESH_F * (MESH_STEPS + 1)
+        busy, n_dev = device_profile(prof)
+        busy_ms = sum(busy.values())
+        del prof
+        kernel_ms = {
+            "B9": sum(v for n, v in busy.items()
+                      if n.split("<")[0].split("::")[-1].startswith("flash_")),
+            "B10": sum(v for n, v in busy.items()
+                       if "rwkv6_kernel" in n.split("<")[0])}
+        router = ""
+        if cfg.num_experts:
+            r_max = state.opt.m["layers"]["ffn"]["router"].abs().max().item()
+            router = f" router max|m|={r_max:.3e} (> 0)"
+        seq_len = MESH_SEQ + (cfg.num_patches if cfg.modality == "vision"
+                              else 0)
+        shape = ShapeConfig("mesh", seq_len, MESH_F * MESH_BATCH, "train")
+        flops = roofline.model_flops_per_device(cfg, shape, 1, MESH_F)
+        best_ms = min(step_ms[1:])
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+        print(f"path mesh train {arch} layers={cfg.num_layers} bf16 params, "
+              f"f32 moments, F={MESH_F} ring remat=full batch={MESH_BATCH} "
+              f"x {seq_len} tokens a node params/node={n_params} "
+              f"state_bytes={state_bytes} ({state_bytes / 1e9:.3f} GB by "
+              f"fed_state_struct, before allocation; {got_bytes} allocated) "
+              f"init_s={init_s:.2f} "
+              f"peak_gb={peak / 1e9:.3f} (above the "
+              f"{base / 1e9:.3f} GB left by earlier phases) ms/step="
+              f"{[round(v, 3) for v in step_ms]} profiled_ms={prof_ms:.3f} "
+              f"loss/step={[round(v, 5) for v in losses]} launches "
+              f"B9={counts['flash_attention']} B10={counts['rwkv6_scan']} "
+              f"(2 x {per_node} x F x {MESH_STEPS + 1} steps){router}",
+              flush=True)
+        print(f"profile mesh train {arch} step: wall_ms={prof_ms:.3f} "
+              f"device_busy_ms={busy_ms:.3f} busy_share="
+              f"{busy_ms / prof_ms:.4f} device_events={n_dev} B9_ms="
+              f"{kernel_ms['B9']:.4f} B10_ms={kernel_ms['B10']:.4f} top="
+              f"{[(n, round(v, 4)) for n, v in top]}", flush=True)
+        print(f"roofline mesh train {arch}: model_flops/step={flops:.4e} "
+              f"(6 x {cfg.active_param_count()} active params x "
+              f"{MESH_F * MESH_BATCH * seq_len} tokens) best ms/step="
+              f"{best_ms:.3f} model_flops_share="
+              f"{flops / (best_ms * 1e-3 * roofline.PEAK_FLOPS):.4f} of "
+              f"{roofline.PEAK_FLOPS:.3e} bf16 FLOP/s on {smi}", flush=True)
+        expect_counts(f"mesh train {arch}", counts, expect)
+        add(counts)
+        for name, key in (("flash_attention", "B9"), ("rwkv6_scan", "B10")):
+            if per_node[name] and kernel_ms[key] <= 0:
+                fail(f"mesh train {arch}: the profiled step launched {key} "
+                     f"but none of its kernels shows device time")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"mesh train {arch}: losses not finite or not falling: "
+                 f"{losses}")
+        if cfg.num_experts and not r_max > 0:
+            fail(f"mesh train {arch}: the router's gradient is zero (its "
+                 f"first moment after {MESH_STEPS + 1} steps)")
+
+        if arch == "internvl2-26b":
+            # node 0's loss and gradient at its params after the steps,
+            # as the step takes them: B9 in the forward, its plain version
+            # in the forward, and (the control) the plain version on the
+            # same params in f32. These launches compare a kernel with its
+            # plain version: they are not counted.
+            node = transformer._layer(state.params, 0)
+            nb = {name: v[0] for name, v in batch.items()}
+            del state, step
+
+            def node_grad(params, c, b):
+                pairs = flatten.leaves_with_paths(params)
+                own = [leaf.detach().requires_grad_() for _, leaf in pairs]
+                loss = transformer.loss_fn(
+                    flatten.build_tree([p for p, _ in pairs], own), c, b,
+                    remat=True)
+                grads = torch.autograd.grad(loss, own,
+                                            materialize_grads=True)
+                return loss.item(), grads
+
+            def plain_attention(q, k, v, *, causal=True, window=None):
+                return ref.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+
+            reset_counts()
+            loss_k, grad_k = node_grad(node, cfg, nb)
+            launched = read_counts()["flash_attention"]
+            with unittest.mock.patch.object(ops, "flash_attention",
+                                            plain_attention):
+                loss_p, grad_p = node_grad(node, cfg, nb)
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                node32 = flatten.tree_map(lambda t: t.float(), node)
+                nb32 = dict(nb, embeds=nb["embeds"].float())
+                loss_c, grad_c = node_grad(node32, cfg32, nb32)
+                del node32, nb32
+            if launched != 2 * per_node["flash_attention"] or \
+                    read_counts()["flash_attention"] != launched:
+                fail(f"mesh train {arch} gradient check: B9 launched "
+                     f"{launched} times with the kernel forward (expected "
+                     f"{2 * per_node['flash_attention']}), "
+                     f"{read_counts()['flash_attention'] - launched} on the "
+                     f"plain path (expected 0)")
+            loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+            worst = (0.0, 0.0, "")
+            names = [path for path, _ in flatten.leaves_with_paths(node)]
+            for path, gk, gp, gc in zip(names, grad_k, grad_p, grad_c):
+                top = gp.float().abs().max().item()
+                if top == 0 or gc.abs().max().item() == 0:
+                    fail(f"mesh train {arch} gradient check: leaf {path} "
+                         f"has a zero gradient")
+                rel = (gk.float() - gp.float()).abs().max().item() / top
+                ctl = (gp.float() - gc).abs().max().item() / \
+                    gc.abs().max().item()
+                if rel > max(MESH_GRAD_TOL, 2 * ctl):
+                    fail(f"mesh train {arch} gradient check: leaf {path} "
+                         f"B9 forward against plain {rel:.3e} of max "
+                         f"|grad| > max({MESH_GRAD_TOL}, 2 x the plain "
+                         f"path's bf16-vs-f32 {ctl:.3e})")
+                if rel > worst[0]:
+                    worst = (rel, ctl, "/".join(map(str, path)))
+            if not loss_rel <= MESH_LOSS_TOL:
+                fail(f"mesh train {arch} gradient check: B9-forward loss "
+                     f"{loss_k} against plain {loss_p}: {loss_rel:.3e} > "
+                     f"{MESH_LOSS_TOL} relative")
+            print(f"check mesh train {arch} one node's step bf16: B9 "
+                  f"forward against its plain version, loss {loss_k:.6f} "
+                  f"against {loss_p:.6f} (f32 control {loss_c:.6f}) rel "
+                  f"diff={loss_rel:.3e} (<= {MESH_LOSS_TOL}); gradient "
+                  f"worst leaf {worst[2]} {worst[0]:.3e} of max |grad| "
+                  f"(<= {MESH_GRAD_TOL} or twice the plain path's "
+                  f"bf16-vs-f32 {worst[1]:.3e}), {len(grad_k)} leaves",
+                  flush=True)
+            del grad_k, grad_p, grad_c, gk, gp, gc, node, nb
+        else:
+            del state, step
+        del batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # -- smoke width: F=3, f32, 2 steps, card against the CPU --------------
+    from repro_torch.configs.base import reduced
+    for arch in MESH_DEPTH:
+        scfg = reduced(get_arch(arch))
+        if arch == "zamba2-1.2b":       # a pattern that holds shared_attn
+            scfg = dataclasses.replace(scfg,
+                                       block_pattern=("mamba", "shared_attn"))
+        sfed = FedConfig(num_nodes=MESH_SMOKE_F)
+        strain = TrainConfig(learning_rate=MESH_LR, remat="full")
+        ratios = (0.3, 0.6, 0.9)
+        runs = {}
+        for where in ("cpu", dev):
+            st = mesh_state(scfg, MESH_SMOKE_F, torch.Generator()
+                            .manual_seed(31), "cpu", ratios)
+            st = steps.MeshFedState(
+                flatten.tree_map(lambda t: t.to(where), st.params),
+                type(st.opt)(st.opt.step.to(where),
+                             flatten.tree_map(lambda t: t.to(where),
+                                              st.opt.m),
+                             flatten.tree_map(lambda t: t.to(where),
+                                              st.opt.v)),
+                st.ratios.to(where))
+            sb = mesh_batch(scfg, MESH_SMOKE_F, 2, 32, 31, "cpu")
+            sb = {name: v.to(where) for name, v in sb.items()}
+            sstep = steps.make_fed_train_step(scfg, sfed, strain)
+            reset_counts()
+            ls = []
+            for _ in range(2):
+                st, loss = sstep(st, sb)
+                ls.append(loss.item())
+            if where == dev:
+                expect = {name: 0 for name in counted()}
+                expect.update({name: 2 * n * MESH_SMOKE_F * 2
+                               for name, n in kernel_layers(scfg).items()})
+                expect_counts(f"mesh train {arch} smoke", read_counts(),
+                              expect)
+                add(read_counts())
+            runs[where] = (st, ls)
+        (cst, cls), (gst, gls) = runs["cpu"], runs[dev]
+        errs = {"params": tree_rel(gst.params, cst.params),
+                "m": tree_rel(gst.opt.m, cst.opt.m),
+                "v": tree_rel(gst.opt.v, cst.opt.v)}
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gls, cls))
+        if not (torch.equal(gst.opt.step.cpu(), cst.opt.step)
+                and loss_rel <= MESH_SMOKE_TOL
+                and max(errs.values()) <= MESH_SMOKE_TOL):
+            fail(f"mesh train {arch} smoke: card against CPU params/m/v "
+                 f"{errs}, losses {loss_rel:.3e} (<= {MESH_SMOKE_TOL} of "
+                 f"max |value|), steps {gst.opt.step.tolist()}")
+        print(f"check mesh train {arch} smoke F={MESH_SMOKE_F} f32 2 steps "
+              f"card-vs-cpu {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}"
+              f" losses {loss_rel:.3e} (<= {MESH_SMOKE_TOL} of max |value|)",
+              flush=True)
+    print(f"phase mesh train {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
@@ -4597,6 +4964,7 @@ def main() -> None:
     rwkv_serving(dev, rows, record, add, expect_counts)
     llm_training(dev, add, expect_counts)
     model_families(dev, rows, record, add, expect_counts, bf16_ulp)
+    mesh_train(dev, add, expect_counts, smi)
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",

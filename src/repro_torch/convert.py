@@ -18,8 +18,9 @@ from repro_torch.core.topology import SparseEta
 from repro_torch.device import resolve_device
 from repro_torch.hierarchy.mixing import HierEta
 from repro_torch.ingest.sketches import SketchState
+from repro_torch.launch.steps import MeshFedState
 from repro_torch.models import attention, mamba, rwkv, transformer
-from repro_torch.optim.adam import FlatAdamState
+from repro_torch.optim.adam import AdamState, FlatAdamState
 
 
 def tensor_from_numpy(value, device) -> torch.Tensor:
@@ -143,6 +144,32 @@ def state_from_numpy(state, device=None) -> FedState:
     sizes = torch.tensor(np.asarray(state.sizes), **f32)
     return FedState(buf, layout, opt, ratios, sizes, int(state.round), tstate,
                     fstate, istate)
+
+
+def mesh_state_from_numpy(state, device=None) -> MeshFedState:
+    """A JAX package ``MeshFedState`` (read by field name: ``params``, a
+    transformer params tree with a leading F axis on every leaf;
+    ``opt.step`` (F,) and the f32 moment trees ``opt.m``/``opt.v``;
+    ``ratios`` (F,)) -> the port's
+    :class:`repro_torch.launch.steps.MeshFedState`, each array in its own
+    dtype."""
+    dev = resolve_device(device)
+    params = transformer_params_from_numpy(state.params, dev)
+    step = torch.tensor(np.asarray(state.opt.step), dtype=torch.int32,
+                        device=dev)
+    opt = AdamState(step=step,
+                    m=transformer_params_from_numpy(state.opt.m, dev),
+                    v=transformer_params_from_numpy(state.opt.v, dev))
+    ratios = torch.tensor(np.asarray(state.ratios), dtype=torch.float32,
+                          device=dev)
+    f = tuple(step.shape)
+    for name, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
+        lead = {leaf.shape[:1] for _, leaf in flatten.leaves_with_paths(tree)}
+        if len(f) != 1 or lead != {f} or tuple(ratios.shape) != f:
+            raise ValueError(f"{name} leaves lead with {sorted(lead)}, the "
+                             f"ratios are {tuple(ratios.shape)} and the Adam "
+                             f"step {f}: expected one F for all")
+    return MeshFedState(params=params, opt=opt, ratios=ratios)
 
 
 def sparse_eta_from_numpy(sp, device=None) -> SparseEta:

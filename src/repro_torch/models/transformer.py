@@ -51,6 +51,18 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` slots along the leading axis of every leaf of a params
+    subtree of dicts, as ``n`` trees of views: one ``unbind`` a leaf, whose
+    backward stacks the slots' gradients in one write (a select a slot
+    would add a full-size zero gradient of the leaf for each slot)."""
+    if isinstance(tree, dict):
+        subs = {name: _unbind(sub, n) for name, sub in tree.items()}
+        return [{name: sub[i] for name, sub in subs.items()}
+                for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _empty_stack(tree, n: int):
     """Uninitialised tensors of ``tree``'s leaves with a leading axis of
     ``n``."""
@@ -185,8 +197,8 @@ def _blocks(params, cfg: ModelConfig):
     """(kind, block params, shared mix params or None) of each layer."""
     kinds = cfg.blocks()
     if _is_homogeneous(cfg):
-        return [(kinds[0], _layer(params["layers"], i), None)
-                for i in range(cfg.num_layers)]
+        return [(kinds[0], p, None)
+                for p in _unbind(params["layers"], cfg.num_layers)]
     return [(kind, params["layers_list"][i],
              params.get("shared_attn") if kind == "shared_attn" else None)
             for i, kind in enumerate(kinds)]

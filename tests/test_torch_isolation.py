@@ -25,8 +25,9 @@ from repro_torch.core import cdfl
 from repro_torch.data import pipeline as tpipeline
 from repro_torch.data import redundancy as tredundancy
 from repro_torch.data import synthetic as tsynthetic
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.models import simple, transformer
+from repro_torch.optim import AdamState
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -77,6 +78,17 @@ def _fields(cls):
                                   "ModelConfig", "ShapeConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tbase, name)) == _fields(getattr(jbase, name))
+
+
+@pytest.mark.parametrize("name", ["MeshFedState", "AdamState"])
+def test_state_fields_match_reference(name):
+    """The mesh train step's state and the pytree Adam's read the same
+    field names in the same order, so ``convert`` carries them across."""
+    from repro.launch import steps as jsteps
+    from repro.optim import AdamState as JAdamState
+    port = {"MeshFedState": steps.MeshFedState, "AdamState": AdamState}
+    ref = {"MeshFedState": jsteps.MeshFedState, "AdamState": JAdamState}
+    assert port[name]._fields == ref[name]._fields
 
 
 def test_run_config_and_mlp_config_match_reference():
@@ -209,6 +221,13 @@ def test_entry_points_default_to_the_card():
             {"embed": {"table": np.zeros((4, 2), np.float32)}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.mesh_state_from_numpy(steps.MeshFedState(
+            {"w": np.zeros((2, 3), np.float32)},
+            AdamState(np.zeros(2, np.int32),
+                      {"w": np.zeros((2, 3), np.float32)},
+                      {"w": np.zeros((2, 3), np.float32)}),
+            np.ones(2, np.float32)))
     assert serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1",
                        "--device", "cpu"]).shape == (1, 1)
     tr = cdfl.build_trainer(_loss(), tbase.FedConfig(), tbase.TrainConfig(),

@@ -6,12 +6,14 @@ comparison (no JAX import) of every top-level function and class method of
 ``src/repro/data/synthetic.py``, ``src/repro/mobility/mixing.py``,
 ``src/repro/core/transport.py``, ``src/repro/core/sketch.py``, the three
 modules of ``src/repro/ingest/`` and ``src/repro/models/transformer.py``,
-``moe.py``, ``mamba.py`` and ``stubs.py`` with its twin in
-``src/repro_torch``, and of the trainer's batched driver and stack builder
-nested in ``build_trainer``. The leading positional parameters and their
+``moe.py``, ``mamba.py`` and ``stubs.py``, ``src/repro/launch/steps.py``
+and ``roofline.py``, and ``src/repro/optim/adam.py`` and ``schedules.py``
+with its twin in ``src/repro_torch``, and of the trainer's batched driver
+and stack builder nested in ``build_trainer``. The leading positional parameters and their
 defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
-``interpret``, ``transport``, ``flat_local``, ``unroll``) and reading the
+``interpret``, ``transport`` but in the roofline, ``flat_local``,
+``unroll``, and ``multi_pod`` until the mesh code) and reading the
 reference's ``rng`` as the port's ``generator``; the reference's
 keyword-only parameters must be keyword-only in the port with the same
 defaults. Port-only parameters (``device``, ``s0``) come after;
@@ -45,7 +47,11 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
           "repro_torch/models/transformer.py"),
          ("repro/models/moe.py", "repro_torch/models/moe.py"),
          ("repro/models/mamba.py", "repro_torch/models/mamba.py"),
-         ("repro/models/stubs.py", "repro_torch/models/stubs.py")]
+         ("repro/models/stubs.py", "repro_torch/models/stubs.py"),
+         ("repro/launch/steps.py", "repro_torch/launch/steps.py"),
+         ("repro/optim/adam.py", "repro_torch/optim/adam.py"),
+         ("repro/optim/schedules.py", "repro_torch/optim/schedules.py"),
+         ("repro/launch/roofline.py", "repro_torch/launch/roofline.py")]
 # whole functions that are dispatch switches of the reference (its CPU
 # wire-cast gate among them), and the mesh path of the ring transport with
 # its dtype helper, which wait for ROADMAP queue A item 24
@@ -58,8 +64,10 @@ SAME_DEFAULT = {"jnp.float32": "torch.float32"}
 # ``unroll`` (the transformer's forward and decode step): straight-line HLO
 # so that XLA's cost analysis counts every layer of a scanned stack, a
 # switch of the reference's dry-run with no meaning outside XLA
+# ``multi_pod`` (the serving steps): the two-pod mesh's sharding rules,
+# which wait for the mesh code (ROADMAP queue A item 24)
 DROPPED_PARAMS = {"force_kernel", "use_pallas", "interpret", "transport",
-                  "flat_local", "unroll"}
+                  "flat_local", "unroll", "multi_pod"}
 # the same parameter in each package's spelling: a torch.Generator takes
 # the place of a JAX PRNG key
 SAME_NAME = {"rng": "generator"}
@@ -85,7 +93,14 @@ def _functions(rel: str) -> dict[str, ast.arguments]:
     return out
 
 
-def _kept(name: str) -> bool:
+# a dropped name that is a real parameter in one reference file: the
+# roofline prices a ``transport`` object (a trainer's switch elsewhere)
+KEPT_PARAMS = {"repro/launch/roofline.py": {"transport"}}
+
+
+def _kept(name: str, rel: str = "") -> bool:
+    if name in KEPT_PARAMS.get(rel, ()):
+        return True
     return name not in DROPPED_PARAMS and not name.startswith("block_")
 
 
@@ -113,9 +128,11 @@ CASES = [(ref_rel, port_rel, name)
 # core/transport.py, the 15 of core/sketch.py and the 7 + 5 + 7 of
 # ingest/scenarios.py, sketches.py and weighting.py; then the 11 of
 # models/transformer.py, the 4 of moe.py, the 9 of mamba.py and the 2 of
-# stubs.py
+# stubs.py; then the 9 of launch/steps.py, the 4 of optim/adam.py, the 3
+# of optim/schedules.py and the 5 functions and 9 methods of
+# launch/roofline.py
 CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7 + 11 + 4 \
-    + 9 + 2
+    + 9 + 2 + 9 + 4 + 3 + 14
 
 
 def test_every_reference_function_is_compared():
@@ -134,7 +151,10 @@ def test_every_reference_function_is_compared():
             "wire_codec", "simhash", "compile_plan", "slot_hashes",
             "weighted_indices", "reweight_eta", "init_params", "init_decode",
             "decode_forward", "chunked", "scan_reference",
-            "vision_patch_embeddings"} <= names
+            "vision_patch_embeddings", "make_fed_train_step",
+            "ring_consensus_roll", "fed_state_struct", "decode_state_struct",
+            "sgd", "global_norm", "cosine", "model_flops_per_device",
+            "parse_collectives", "Roofline.with_consensus"} <= names
     assert len(CASES) == CASE_COUNT
 
 
@@ -144,14 +164,14 @@ def test_port_twin_keeps_the_reference_signature(ref_rel, port_rel, name):
     port = _functions(port_rel)
     assert name in port, f"{port_rel} has no {name}"
     want = [(p, d) for p, d in _positional(_functions(ref_rel)[name])
-            if _kept(p)]
+            if _kept(p, ref_rel)]
     got = _positional(port[name])
     if (ref_rel, name) in REORDERED:
         want = REORDERED[ref_rel, name]
         assert got == want, (name, got, want)
     assert got[:len(want)] == want, (name, got, want)
     want_kw = {p: d for p, d in _keyword_only(_functions(ref_rel)[name])
-               .items() if _kept(p)}
+               .items() if _kept(p, ref_rel)}
     got_kw = _keyword_only(port[name])
     assert {p: got_kw.get(p, "<missing>") for p in want_kw} == want_kw
 
