@@ -142,7 +142,13 @@ allocated, peak memory, B9/B10 launches as counted, the busy share and a
 model-FLOPs share of the bf16 peak; falling losses; mixtral's router
 moved); internvl2's loss and gradient with B9 in the forward against its
 plain version (a bf16-vs-f32 control); each family's smoke width on F=3
-nodes in f32, card against CPU. Then the loaded libraries by digest; the kernel
+nodes in f32, card against CPU; the mesh code: three dry runs
+(``python -m repro_torch.launch.dryrun``, qwen3-1.7b x train_4k on one
+and two pods, mixtral-8x7b x decode_32k) as subprocesses on the host's
+cores, the ring helpers on one node of qwen3-1.7b over a one-rank NCCL
+world against the CPU, the serving prefill and one mesh train step with
+DTensor state on one-device meshes bit for bit against the plain steps.
+Then the loaded libraries by digest; the kernel
 table (ten kernels, B1 and B2 also with their variant axis) as one JSON
 line; and the verdict as the last line. Every path
 phase zeroes the kernels' launch counts before it runs and checks them
@@ -151,6 +157,7 @@ fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -286,6 +293,20 @@ MESH_SMOKE_F = 3              # the smoke-width check: F=3, f32, 2 steps
 MESH_SMOKE_TOL = 1e-4         # card against CPU, of max |value| a tree
 MESH_LOSS_TOL = 1e-2          # internvl2 B9 forward against plain, relative
 MESH_GRAD_TOL = 3e-2          # its gradient, of max |value| a leaf
+# the mesh code (launch/mesh.py, sharding.py, models/pspec.py, dryrun.py
+# and the ring helpers): dry runs as subprocesses (arch, shape, two pods);
+# the ring helpers on one node of qwen3-1.7b at full width, 2 of 28
+# layers, over a one-rank NCCL world, against the CPU; the serving prefill
+# and one mesh train step on one-device meshes, against the plain steps
+MESH_DRYRUNS = (("qwen3-1.7b", "train_4k", False),
+                ("qwen3-1.7b", "train_4k", True),
+                ("mixtral-8x7b", "decode_32k", False))
+DRYRUN_TIMEOUT = 600          # seconds a dry-run subprocess may take
+RING_LAYERS = 2
+RING_RTOL, RING_ATOL = 1e-5, 1e-6
+RING_GAMMA = 0.4
+MESH_STEP_ARCH = ("rwkv6-7b", 2)   # the mesh train phase's rwkv6: 2 layers
+MESH_CODE_TIMED = 3                # mesh code: steps timed after the first
 
 
 def fail(msg: str) -> None:
@@ -3625,6 +3646,302 @@ def mesh_train(dev, add, expect_counts, smi) -> None:
           flush=True)
 
 
+def to_mesh(tree, mesh, spec_fn):
+    """Every tensor of a tree as a DTensor on ``mesh``, placed by
+    ``spec_fn(shape, mesh, name)`` (the sharding rules), sharing its
+    storage."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding
+
+    def place(path, leaf):
+        spec = spec_fn(tuple(leaf.shape), mesh, sharding._leaf_name(path)) \
+            if leaf.dim() else sharding.P()
+        return DTensor.from_local(
+            leaf, mesh, sharding.NamedSharding(mesh, spec).placements,
+            run_check=False)
+    return sharding.tree_map_with_path(place, tree)
+
+
+def mesh_code(dev, add, expect_counts, smi) -> None:
+    """The mesh code: ``python -m repro_torch.launch.dryrun`` on a fake
+    world of 256 or 512 ranks as subprocesses (qwen3-1.7b x train_4k on
+    one and two pods, mixtral-8x7b x decode_32k), their records' devices,
+    shard GB, counted FLOPs, collectives and seconds; then, in a one-rank
+    world (NCCL for the card, gloo for the CPU, a FileStore under
+    ``build/``), ``ring_exchange_shard`` and ``ring_consensus_shard`` on
+    one node of qwen3-1.7b at full width with f32 and bf16 wires and 1 and
+    4 column shards, the card against the CPU and against its input (a
+    ring of one rank returns it: a self-permute and a mix whose
+    differences are 0), and timed; the serving
+    prefill of qwen3-1.7b at full width through ``make_prefill_step(cfg,
+    multi_pod=False)`` with its params and batch as DTensors on a
+    one-device ``("data", "model")`` mesh, and the mesh train step of
+    rwkv6-7b (2 layers, F=2, bf16; four steps, the last three timed, and
+    the memory they allocate above the state) with its state as DTensors
+    on a one-device ``("fed", "dp", "tp")`` mesh (a ring one rank wide),
+    each bit for bit against the plain-tensor step,
+    with B9 and B10 counted."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import consensus, flatten, transport
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import schedules
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"phase mesh code starts with "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
+          flush=True)
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for arch, shape, pods in MESH_DRYRUNS:
+        out = out_dir / f"{arch}_{shape}_{'two' if pods else 'one'}_pod.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        runs.append((arch, shape, pods, out, time.perf_counter(),
+                     subprocess.Popen(cmd + (["--multi-pod"] if pods else []),
+                                      cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT)))
+
+    def stop_dryruns():
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # the dry runs end with the script, whichever way it ends
+    atexit.register(stop_dryruns)
+
+    store = ROOT / "build" / f"mesh_store_{os.getpid()}"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    rings = {where: DeviceMesh(where, torch.zeros(1, dtype=torch.int64),
+                               mesh_dim_names=("fed",))
+             for where in ("cpu", "cuda")}
+
+    # -- the ring helpers: one node of qwen3-1.7b at full width -----------
+    rcfg = cut_depth(get_arch(SERVE_ARCH), RING_LAYERS)
+    params = transformer.init_params(rcfg, torch.Generator(device=dev)
+                                     .manual_seed(41), device=dev)
+    vec, layout = flatten.flatten_one(params)
+    vec_cpu = vec.cpu()
+    ratio = {where: torch.tensor([0.7], device=where)
+             for where in ("cpu", "cuda")}
+    etas = {where: consensus.ring_sketch_exchange(ratio[where], "fed",
+                                                  mesh=rings[where])
+            for where in ("cpu", "cuda")}
+    for wire in ("f32", "bf16"):
+        ep, en = etas["cpu"]
+        want = transport.ring_exchange_shard(
+            vec_cpu, ep[0], en[0], RING_GAMMA, "fed", wire_dtype=wire,
+            mesh=rings["cpu"])
+        want_tree = flatten.unflatten_one(want, layout)
+        for shards in (1, 4):
+            ep, en = etas["cuda"]
+
+            def exchange():
+                return transport.ring_exchange_shard(
+                    vec, ep[0], en[0], RING_GAMMA, "fed", wire_dtype=wire,
+                    shards=shards, mesh=rings["cuda"])
+
+            def mix():
+                return consensus.ring_consensus_shard(
+                    params, ep[0], en[0], RING_GAMMA, "fed",
+                    wire_dtype=wire, shards=shards, mesh=rings["cuda"])
+
+            got = exchange().cpu()
+            err = (got - want).abs()
+            excess = (err - (RING_ATOL + RING_RTOL * want.abs())).max()
+            # a ring of one rank receives its own payload, so every
+            # difference term is 0 and the output is its input: this
+            # checks the wire cast and the plumbing (the 4-rank gloo test
+            # holds the mix's arithmetic)
+            same = torch.equal(got, vec_cpu)
+            tree = mix()
+            tree_ok = all(torch.equal(g.cpu(), w) for (_, g), (_, w) in zip(
+                flatten.leaves_with_paths(tree),
+                flatten.leaves_with_paths(want_tree)))
+            del tree
+            if excess > 0 or not tree_ok or not same:
+                fail(f"mesh ring qwen3-1.7b wire={wire} shards={shards}: "
+                     f"card against CPU max |diff| {err.max().item():.3e} "
+                     f"(rtol {RING_RTOL}, atol {RING_ATOL}); "
+                     f"ring_consensus_shard's leaves equal: {tree_ok}; "
+                     f"output equal to its input: {same}")
+            ex_ms, _ = timing(exchange, launches=3, reps=3, graph=False)
+            mix_ms, _ = timing(mix, launches=3, reps=3, graph=False)
+            print(f"check mesh ring qwen3-1.7b {RING_LAYERS} layers "
+                  f"P={layout.padded} wire={wire} shards={shards} "
+                  f"(n={flatten.column_shards(layout.padded, shards)}): "
+                  f"ring_exchange_shard card against CPU max |diff| "
+                  f"{err.max().item():.3e} (rtol {RING_RTOL} atol "
+                  f"{RING_ATOL}), ring_consensus_shard leaves equal to the "
+                  f"CPU's, output equal to its input (a ring of one rank); ms ring_exchange_shard={ex_ms:.3f} "
+                  f"ring_consensus_shard={mix_ms:.3f} on {smi}", flush=True)
+        del want, want_tree
+    del params, vec, vec_cpu
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- the serving prefill on a one-device ("data", "model") mesh -------
+    scfg = get_arch(SERVE_ARCH)
+    sparams = transformer.init_params(scfg, torch.Generator(device=dev)
+                                      .manual_seed(42), device=dev)
+    tokens = torch.randint(0, scfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(42), device=dev, dtype=torch.int32)
+    smesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                       mesh_dim_names=("data", "model"))
+    prefill = steps.make_prefill_step(scfg, multi_pod=False)
+    results = {}
+    for name, (p, b) in {
+            "plain": (sparams, {"tokens": tokens}),
+            "mesh": (to_mesh(sparams, smesh, lambda s, m, n:
+                             sharding.serve_param_spec(s, m, name=n)),
+                     to_mesh({"tokens": tokens}, smesh, lambda s, m, n:
+                             sharding.serve_batch_spec(s, m)))}.items():
+        prefill(p, b)                       # first use
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = prefill(p, b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        expect = {n: 0 for n in counted()}
+        expect["flash_attention"] = scfg.num_layers
+        expect_counts(f"mesh prefill {name}", counts, expect)
+        add(counts)
+        results[name] = (getattr(out, "to_local", lambda: out)(), ms,
+                         counts)
+    equal = torch.equal(results["plain"][0], results["mesh"][0])
+    print(f"check mesh prefill {SERVE_ARCH} bf16 {SERVE_BATCH} x "
+          f"{SERVE_PROMPT} tokens, params as DTensors on a one-device "
+          f"(data, model) mesh: tokens equal to the plain step's: {equal}; "
+          f"ms plain={results['plain'][1]:.3f} mesh="
+          f"{results['mesh'][1]:.3f}; launches added B9="
+          f"{results['plain'][2]['flash_attention']} + "
+          f"{results['mesh'][2]['flash_attention']} B10="
+          f"{results['plain'][2]['rwkv6_scan']} + "
+          f"{results['mesh'][2]['rwkv6_scan']}", flush=True)
+    if not equal:
+        fail("mesh prefill: the one-device mesh step differs from the "
+             "plain step")
+    del sparams, results, out, p, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- one mesh train step on a one-device ("fed", "dp", "tp") mesh -----
+    arch, layers = MESH_STEP_ARCH
+    tcfg = dataclasses.replace(cut_depth(get_arch(arch), layers),
+                               dtype="bfloat16")
+    train = TrainConfig(learning_rate=schedules.cosine(
+        MESH_LR, MESH_STEPS + 1, 100), remat="full")
+    step = steps.make_fed_train_step(tcfg, FedConfig(num_nodes=MESH_F),
+                                     train)
+    batch = mesh_batch(tcfg, MESH_F, MESH_BATCH, MESH_SEQ, 43, dev)
+    fmesh = DeviceMesh("cuda", torch.zeros((1, 1, 1), dtype=torch.int64),
+                       mesh_dim_names=("fed", "dp", "tp"))
+    done = {}
+    for name in ("plain", "mesh"):
+        state = mesh_state(tcfg, MESH_F, torch.Generator(device=dev)
+                           .manual_seed(43), dev, MESH_RATIOS)
+        b = batch
+        if name == "mesh":
+            state = to_mesh(state, fmesh, lambda s, m, n:
+                            sharding.fed_param_spec(s, m, name=n))
+            b = to_mesh(batch, fmesh, lambda s, m, n:
+                        sharding.fed_batch_spec(s, m))
+        # the first step pays for the allocator's first blocks; the next
+        # MESH_CODE_TIMED are timed one by one (median), and their peak
+        # allocation above the state is the step's transient memory
+        reset_counts()
+        state, loss = step(state, b)
+        times = []
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(MESH_CODE_TIMED):
+            t0 = time.perf_counter()
+            state, loss = step(state, b)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        transient_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        counts = read_counts()
+        expect = {n: 0 for n in counted()}
+        expect["rwkv6_scan"] = 2 * (1 + MESH_CODE_TIMED) * layers * MESH_F
+        expect_counts(f"mesh train step {name}", counts, expect)
+        add(counts)
+        done[name] = (state, loss, statistics.median(times), counts,
+                      transient_gb)
+        del state, b
+    (ps, pl, pms, pc, pgb), (ms_, ml, mms, mc, mgb) = done["plain"], \
+        done["mesh"]
+    local = [leaf.to_local() for leaf in tree_leaves(
+        [ms_.params, ms_.opt.m, ms_.opt.v])] + [ms_.opt.step.to_local()]
+    plain = tree_leaves([ps.params, ps.opt.m, ps.opt.v]) + [ps.opt.step]
+    same = len(local) == len(plain) and torch.equal(pl, ml) and all(
+        torch.equal(a, b) for a, b in zip(local, plain))
+    print(f"check mesh train step {arch} {layers} layers bf16 F={MESH_F} "
+          f"state as DTensors on a one-device (fed, dp, tp) mesh, a ring "
+          f"one rank wide, {1 + MESH_CODE_TIMED} steps: params, moments, "
+          f"steps and loss ({ml.item():.6f}) equal to the plain steps': "
+          f"{same} ({len(plain)} tensors); ms median of steps 2-"
+          f"{1 + MESH_CODE_TIMED} plain={pms:.3f} mesh={mms:.3f}; GB "
+          f"allocated above the state at the peak plain={pgb:.3f} "
+          f"mesh={mgb:.3f}; launches added B9="
+          f"{pc['flash_attention']} + {mc['flash_attention']} B10="
+          f"{pc['rwkv6_scan']} + {mc['rwkv6_scan']}", flush=True)
+    if not same:
+        fail("mesh train step: the one-device mesh step differs from the "
+             "plain step")
+    del done, ps, ms_, local, plain, batch, step
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- the dry runs' records ---------------------------------------------
+    for arch, shape, pods, out, t0, proc in runs:
+        try:
+            text, _ = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"mesh dryrun {arch} x {shape}: over {DRYRUN_TIMEOUT} s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"mesh dryrun {arch} x {shape} two_pods={pods}: exit "
+                 f"{proc.returncode}: {text[-3000:]}")
+        rec = json.loads(out.read_text())["records"][0]
+        gb = rec["bytes_per_device"]["arguments"] / 1e9
+        print(f"mesh dryrun {arch} x {shape} "
+              f"{'two pods' if pods else 'one pod'}: devices="
+              f"{rec['devices']} fed_nodes={rec['fed_nodes']} "
+              f"gb_per_device={gb:.3f} (arguments; outputs "
+              f"{rec['bytes_per_device']['outputs'] / 1e9:.3f}) "
+              f"counted_gflops={rec['hlo_gflops']:.1f} counted_hbm_gb="
+              f"{rec['hbm_gb']:.2f} collectives={rec['collective_counts']} "
+              f"wire_gb={rec['wire_gb']:.3f} consensus_wire_bytes_per_node="
+              f"{rec['consensus_wire_bytes_per_node']:.0f} "
+              f"useful_flops_ratio={rec['useful_flops_ratio']:.3f} "
+              f"bottleneck={rec['bottleneck']} run_s={rec['compile_s']} "
+              f"process_s={secs:.1f} (counts priced at the H100's peaks, "
+              f"not times)", flush=True)
+    print(f"phase mesh code {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
@@ -4965,6 +5282,7 @@ def main() -> None:
     llm_training(dev, add, expect_counts)
     model_families(dev, rows, record, add, expect_counts, bf16_ulp)
     mesh_train(dev, add, expect_counts, smi)
+    mesh_code(dev, add, expect_counts, smi)
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",

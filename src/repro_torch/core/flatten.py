@@ -141,6 +141,49 @@ def unflatten(buf: torch.Tensor, layout: FlatLayout):
     return build_tree(layout.paths, leaves)
 
 
+def make_layout_one(params) -> FlatLayout:
+    """Layout of a SINGLE node's tree (no leading K dim): the shapes are
+    the full leaf shapes and ``num_nodes`` is 1. Pack with
+    :func:`flatten_one`, unpack with :func:`unflatten_one`. This is the
+    mesh-mode layout: each fed rank holds one node's params, and the ring
+    exchange moves its single ``(P,)`` vector — one collective, not one
+    per leaf."""
+    return make_layout(tree_map(lambda leaf: leaf[None], params))
+
+
+def flatten_one(params, layout: FlatLayout | None = None):
+    """Pack a single-node tree into a lane-padded ``(P,)`` f32 vector (tail
+    padding zero). Returns ``(vec, layout)``; inverse:
+    :func:`unflatten_one`."""
+    buf, layout = flatten(tree_map(lambda leaf: leaf[None], params), layout)
+    return buf[0], layout
+
+
+def unflatten_one(vec: torch.Tensor, layout: FlatLayout, cast: bool = True):
+    """Single-node unpack: ``(P,)`` -> the layout's tree with the trailing
+    shapes (no K dim), each leaf restored to its recorded dtype
+    (``cast=False`` keeps the vector's dtype). f32 leaves of an f32
+    vector are views."""
+    leaves = []
+    for shape, dtype, off, size in zip(layout.shapes, layout.dtypes,
+                                       layout.offsets, layout.sizes):
+        leaf = vec[off:off + size].view(shape)
+        leaves.append(leaf.to(dtype) if cast and dtype != vec.dtype
+                      else leaf)
+    return build_tree(layout.paths, leaves)
+
+
+def column_shards(padded: int, shards: int) -> int:
+    """Largest shard count <= ``shards`` that splits a ``padded``-wide
+    buffer into equal LANE-aligned column chunks. The ring transport
+    sends chunk j+1 while mixing chunk j; unshardable widths fall back to
+    1 (one transfer, no overlap)."""
+    shards = max(int(shards), 1)
+    while shards > 1 and (padded % shards or (padded // shards) % LANE):
+        shards -= 1
+    return shards
+
+
 def prefix_length(layout: FlatLayout, fraction: float) -> int:
     """Flat-buffer prefix covering the first ``fraction`` of leaves:
     C-DFA(M) mixes only the first ``max(1, round(f * n_leaves))`` leaves

@@ -102,6 +102,14 @@ def wire_codec(name: str) -> WireCodec:
     return wire_codecs.get(name)
 
 
+def _wire_dtype(name: str):
+    """The torch dtype of a pure-cast codec."""
+    codec = wire_codec(name)
+    if codec.cast_dtype is None:
+        raise ValueError(f"wire codec {name!r} is not a pure dtype cast")
+    return codec.cast_dtype
+
+
 # --------------------------------------------------------------------------
 # Transports.
 # --------------------------------------------------------------------------
@@ -329,3 +337,46 @@ def make_transport(fed) -> Any:
     for: a registry lookup."""
     wire_codec(fed.wire_dtype)          # validate early
     return transports.get(fed.transport)(fed)
+
+
+# --------------------------------------------------------------------------
+# Mesh mode: the ring transport over the fed group (one node per rank).
+# --------------------------------------------------------------------------
+
+def ring_exchange_shard(vec: torch.Tensor, eta_prev: torch.Tensor,
+                        eta_next: torch.Tensor, gamma, axis, *,
+                        wire_dtype: str = "f32", shards: int = 1,
+                        perms=None, mesh=None) -> torch.Tensor:
+    """Eq. 5 on the physical ring for ONE node's flat ``(P,)`` vector (one
+    node per rank of the ring over the mesh dimensions ``axis``).
+
+    The vector is cast to the wire dtype and split into LANE-aligned
+    column chunks, and every chunk is sent in both directions before any
+    is mixed (the permutes are asynchronous collectives, so the mix of
+    chunk j can overlap the transfer of chunk j+1). ``shards=1`` is ONE
+    permute per direction per round. The node's own value goes through
+    the wire cast too (``w_self``), so only the difference terms see the
+    wire precision and they vanish at consensus.
+
+    Only pure-cast wire codecs are supported (one tensor moves per chunk).
+    ``perms``: optional precomputed (fwd, bwd) (src, dst) pairs from
+    :func:`repro_torch.launch.mesh.fed_ring_perms`. ``mesh``: the
+    DeviceMesh whose dimensions ``axis`` names (port-only)."""
+    from repro_torch.core.consensus import ring_neighbors
+
+    wdt = _wire_dtype(wire_dtype)
+    wire = vec.to(wdt)
+    n = flatten.column_shards(wire.shape[-1], shards)
+    width = wire.shape[-1] // n
+    chunks = wire.split(width, dim=-1)
+    # issue every transfer before any mix so they can all be in flight
+    moved = [ring_neighbors(c, axis, perms=perms, mesh=mesh) for c in chunks]
+    g = torch.as_tensor(gamma, dtype=vec.dtype, device=vec.device)
+    ep = eta_prev.to(vec.dtype)
+    en = eta_next.to(vec.dtype)
+    outs = []
+    for c, (w_prev, w_next) in zip(vec.split(width, dim=-1), moved):
+        w_self = c.to(wdt).to(vec.dtype)
+        outs.append(c + g * (ep * (w_prev.to(vec.dtype) - w_self)
+                             + en * (w_next.to(vec.dtype) - w_self)))
+    return outs[0] if n == 1 else torch.cat(outs, dim=-1)

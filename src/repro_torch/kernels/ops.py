@@ -2,7 +2,8 @@
 
 A CUDA tensor always goes to the hand-written kernel (which launches or
 raises); a CPU tensor goes to the plain PyTorch version in
-:mod:`repro_torch.kernels.ref`. Any other device raises. Higher layers
+:mod:`repro_torch.kernels.ref`, and so does a meta tensor inside
+:func:`shapes_only` (the dry run). Any other device raises. Higher layers
 call these, never the kernel wrappers directly.
 
 B9 and B10 have no backward kernel, as the TPU kernels have none: the JAX
@@ -14,6 +15,8 @@ launches the kernel) and whose backward recomputes the plain version and
 differentiates it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -27,10 +30,26 @@ from repro_torch.kernels import rwkv6_scan as _rw
 from repro_torch.kernels import sparse_mix as _sm
 
 
+_SHAPES_ONLY = False
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within, a meta tensor takes the plain version too: shapes and
+    dtypes, no data (the dry run, ``launch/dryrun.py``). Outside, a meta
+    tensor raises like any device but CUDA and the CPU."""
+    global _SHAPES_ONLY
+    prev, _SHAPES_ONLY = _SHAPES_ONLY, True
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY = prev
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or _SHAPES_ONLY and t.device.type == "meta":
         return False
     raise ValueError(f"repro_torch kernels run on cuda or cpu tensors, "
                      f"got {t.device}")

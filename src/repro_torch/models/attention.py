@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, pspec
 
 
 class KVCache(NamedTuple):
@@ -47,9 +47,10 @@ def init(generator, cfg: ModelConfig, dtype=torch.float32, device=None):
 def _project_qkv(params, cfg: ModelConfig, x, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    q = pspec.splittable(x @ params["wq"], -1, h).reshape(b, s, h, hd)
+    k = pspec.splittable(x @ params["wk"], -1, kv).reshape(b, s, kv, hd)
+    v = pspec.splittable(x @ params["wv"], -1, kv).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q)
         k = layers.rmsnorm(params["k_norm"], k)
@@ -68,14 +69,34 @@ def attend(q, k, v, *, causal: bool, window: Optional[int],
     Scores and softmax in f32; the probabilities are cast to v's dtype
     before the product with v, as in the JAX package.
     """
-    b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    h, kv = q.shape[2], k.shape[2]
     groups = h // kv
     if groups > 1:
         k = k.repeat_interleave(groups, dim=2)
         v = v.repeat_interleave(groups, dim=2)
+    # on a mesh (port-only): q, k and v over the batch and head shards
+    # (for the repeated heads a local slice, their gradient gathered whole
+    # before the repeat's backward folds H into (KV, groups)); each
+    # (batch row, head) attends on its own, so every rank attends its
+    # shards locally
+    q = pspec.constrain(q, "batch", None, "heads", None)
+    k = pspec.constrain(k, "batch", None, "heads", None)
+    v = pspec.constrain(v, "batch", None, "heads", None)
+    out = pspec.local_shards(
+        lambda q, k, v: _attend(q, k, v, causal, window, q_offset),
+        (q, k, v), dims=(0, 2))
+    if out is None:
+        out = _attend(q, k, v, causal, window, q_offset)
+    return pspec.constrain(out, "batch", None, "heads", None)
+
+
+def _attend(q, k, v, causal, window, q_offset):
+    """:func:`attend` after the GQA repeat: q/k/v (B, S, H, D)."""
+    sq, d = q.shape[1], q.shape[3]
+    sk = k.shape[1]
     scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) \
         / math.sqrt(d)
+    scores = pspec.constrain(scores, "batch", "heads", None, None)
     qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -98,7 +119,10 @@ def forward(params, cfg: ModelConfig, x, positions=None,
     window = window_override if window_override is not None \
         else cfg.sliding_window
     out = ops.flash_attention(q, k, v, causal=True, window=window)
-    return out.reshape(b, s, -1) @ params["wo"]
+    # on a mesh (port-only): the merged heads over the head shards, so that
+    # their gradient reaches the merge's backward placed as in the forward
+    out = pspec.constrain(out.reshape(b, s, -1), "batch", None, "heads")
+    return out @ params["wo"]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -127,10 +151,14 @@ def decode_step(params, cfg: ModelConfig, x, cache: KVCache,
     s_cache = cache.k.shape[1]
     pos = cache.length.expand(b, 1)
     q, k, v = _project_qkv(params, cfg, x, pos)
+    # the grouped view below splits the head dim into (KV, groups): on a
+    # mesh whose head shards outnumber the KV heads that split cannot be
+    # placed, so the query heads are replicated first (port-only; the
+    # reference's partitioner reshards there by itself)
+    q = pspec.constrain(q, "batch", None, "kv", None)
     slot = cache.length.long() % s_cache
-    cache.k.index_copy_(1, slot.reshape(1), k.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot.reshape(1), v.to(cache.v.dtype))
-    new_k, new_v = cache.k, cache.v
+    new_k = pspec.write_slot(cache.k, 1, slot, k.to(cache.k.dtype))
+    new_v = pspec.write_slot(cache.v, 1, slot, v.to(cache.v.dtype))
     window = window_override if window_override is not None \
         else cfg.sliding_window
 

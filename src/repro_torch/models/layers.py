@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import pspec
+
 
 def _dense_init(generator: torch.Generator, shape, scale=None,
                 dtype=torch.float32, device=None) -> torch.Tensor:
@@ -90,6 +92,7 @@ def swiglu_init(generator, d_model, d_ff, dtype=torch.float32, device=None):
 
 def swiglu(params, x):
     gate = F.silu(x @ params["w_gate"])
+    gate = pspec.constrain(gate, *((None,) * (gate.ndim - 1)), "ffn")
     return (gate * (x @ params["w_up"])) @ params["w_down"]
 
 
@@ -106,6 +109,7 @@ def gelu_mlp_init(generator, d_model, d_ff, dtype=torch.float32,
 def gelu_mlp(params, x):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(x @ params["w_up"], approximate="tanh")
+    h = pspec.constrain(h, *((None,) * (h.ndim - 1)), "ffn")
     return h @ params["w_down"]
 
 
@@ -126,7 +130,13 @@ def embedding_init(generator, vocab, d_model, dtype=torch.float32,
 
 
 def embed(params, tokens):
-    return params["table"][tokens.long()]
+    # the embedding op rather than ``table[tokens]``: on a DTensor table (a
+    # mesh) DTensor places its backward, and may not place an index's
+    # backward (an index_put). On a mesh the token ids are replicated
+    # first: a vocab-sharded lookup of batch-sharded ids keeps the ids'
+    # local mask but gathers the ids, and its reduction fails (torch 2.13)
+    tokens = pspec.constrain(tokens, *((None,) * tokens.ndim))
+    return F.embedding(tokens.long(), params["table"])
 
 
 def unembed(params, x):

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, pspec
 
 
 def init(generator, cfg: ModelConfig, dtype=torch.float32, device=None):
@@ -93,6 +93,7 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
     xg = tokens.reshape(g, gs, d)
     cap = _capacity(gs, e, k, cfg.capacity_factor)
 
+    xg = pspec.constrain(xg, "batch", None, None)   # groups follow batch
     probs, gate_vals, idx = route(params, cfg, xg)           # (g, gs, k)
     mask, pos = queue_positions(idx, e)
     keep = pos < cap
@@ -112,9 +113,12 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
     xpad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
     g_idx = torch.arange(g, device=x.device)[:, None, None]
     xin = xpad[g_idx, table]                                  # (g, E, C, d)
+    xin = pspec.constrain(xin, "batch", None, None, None)
     h = F.silu(torch.einsum("gecd,edf->gecf", xin, params["w_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", xin, params["w_up"])
+    h = pspec.constrain(h, "batch", None, None, "ffn")
     expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    expert_out = pspec.constrain(expert_out, "batch", None, None, None)
 
     # combine: gather each token's k expert outputs, gate-weight, sum
     eo = expert_out.reshape(g, e * cap, d)
@@ -122,12 +126,22 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
     gathered = eo[g_idx, lin2]                                # (g, gs, k, d)
     w = (gate_vals * keep).to(x.dtype)
     out = torch.einsum("gsk,gskd->gsd", w, gathered)
+    out = pspec.constrain(out, "batch", None, None)
 
     # Switch load-balance auxiliary loss: E * sum_e f_e * P_e
     frac_dispatched = mask.sum(dim=2).mean(dim=1)             # (g, E)
     mean_prob = probs.mean(dim=1)                             # (g, E)
     aux = (e * (frac_dispatched * mean_prob).sum(dim=-1)).mean()
     return out.reshape(b, s, d), aux
+
+
+def _per_expert(tokens, w):
+    """tokens (T, d) through each expert's w (E, d, f) -> (T, E, f), as a
+    GEMM batched over E, which reads w in place. (``einsum("td,edf->tef")``
+    folds (E, f) into one GEMM dim: on one device that copies w into a
+    (d, E*f) layout, and on a DTensor with f sharded DTensor refuses the
+    fold.)"""
+    return torch.matmul(tokens, w).transpose(0, 1)
 
 
 def decode_forward(params, cfg: ModelConfig, x):
@@ -139,8 +153,8 @@ def decode_forward(params, cfg: ModelConfig, x):
     _, gate_vals, idx = route(params, cfg, tokens)            # (T, k)
     sel = F.one_hot(idx, e).float()                           # (T, k, E)
     w = (sel * gate_vals[..., None]).sum(dim=1)               # (T, E)
-    h = F.silu(torch.einsum("td,edf->tef", tokens, params["w_gate"]))
-    h = h * torch.einsum("td,edf->tef", tokens, params["w_up"])
+    h = F.silu(_per_expert(tokens, params["w_gate"]))
+    h = h * _per_expert(tokens, params["w_up"])
     eo = torch.einsum("tef,efd->ted", h, params["w_down"])
     out = torch.einsum("te,ted->td", w.to(x.dtype), eo)
     return out.reshape(b, s, d), torch.zeros((), dtype=torch.float32,

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mamba, moe, rwkv
+from repro_torch.models import attention, layers, mamba, moe, pspec, rwkv
 from repro_torch.registry import check_model_ported
 
 
@@ -60,7 +60,7 @@ def _unbind(tree, n: int) -> list:
         subs = {name: _unbind(sub, n) for name, sub in tree.items()}
         return [{name: sub[i] for name, sub in subs.items()}
                 for i in range(n)]
-    return list(tree.unbind(0))
+    return list(pspec.gather_dim(tree, 0).unbind(0))
 
 
 def _empty_stack(tree, n: int):
@@ -120,7 +120,8 @@ def _apply_block(p, cfg: ModelConfig, kind: str, x, *, shared=None,
     """Returns (x, aux, new_state)."""
     _, norm_fn = layers.make_norm(cfg.norm)
     mix_params = shared if shared is not None else p["mix"]
-    h = norm_fn(p["norm1"], x)
+    x = pspec.constrain(x, "batch", None, None)
+    h = pspec.constrain(norm_fn(p["norm1"], x), "batch", None, None)
     if kind in ("attn", "shared_attn"):
         if decode:
             mix_out, new_state = attention.decode_step(
@@ -135,10 +136,11 @@ def _apply_block(p, cfg: ModelConfig, kind: str, x, *, shared=None,
         mix_out, new_state = mamba.forward(mix_params, cfg, h, state)
     else:
         raise ValueError(kind)
-    x = x + mix_out
-    h = norm_fn(p["norm2"], x)
+    x = x + pspec.constrain(mix_out, "batch", None, None)
+    h = pspec.constrain(norm_fn(p["norm2"], x), "batch", None, None)
     ffn_out, aux = _apply_ffn(p, cfg, h, decode, group_size)
-    return x + ffn_out, aux, new_state
+    x = x + pspec.constrain(ffn_out, "batch", None, None)
+    return x, aux, new_state
 
 
 # --------------------------------------------------------------------------
@@ -221,6 +223,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
     check_model_ported(cfg)
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens).to(_dtype(cfg))
+    x = pspec.constrain(x, "batch", None, None)
     n_text = tokens.shape[1]
     vision = cfg.modality == "vision" and "embeds" in batch
     if vision:
@@ -245,7 +248,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, window_override=None,
     if last_only:
         x = x[:, -1:, :]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return layers.unembed(head, x), aux
+    logits = layers.unembed(head, x)
+    logits = pspec.constrain(logits, "batch", None, "vocab")
+    return logits, aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
@@ -254,9 +259,12 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, **kw):
     ``router_aux_coef`` times the MoE load-balance loss."""
     logits, aux = forward(params, cfg, batch, **kw)
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = lse - picked
+    # the label's logit is subtracted before the last dim is dropped: a
+    # DTensor reduces the partial result of a gather over vocab shards at
+    # the (..., 1) shape the gather made
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    picked = torch.gather(logits, -1, labels[..., None])
+    nll = (lse - picked)[..., 0]
     mask = batch.get("mask")
     if mask is not None:
         mask = mask.float()

@@ -34,6 +34,19 @@ from repro_torch.data import redundancy as tredundancy
 from repro_torch.data import synthetic as tsynthetic
 from repro_torch.models import simple as tsimple
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's tensors here are a few nodes' small MLPs: one intra-op
+    thread, so that the spinning threads of a machine loaded by several
+    pytest-xdist workers do not dominate (an op on such a tensor took
+    milliseconds there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 S, B, N = 2, 8, 64
 TOL = 1e-5
 TOL_BF16 = 1e-4          # see tests/test_torch_cdfl.py: bf16 ulp drift

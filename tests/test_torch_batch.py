@@ -35,6 +35,19 @@ from repro_torch.core import topology as ttopo
 from repro_torch.launch import train as ttrain
 from repro_torch.mobility import mixing as tmixing
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's tensors here are a few nodes' small MLPs: one intra-op
+    thread, so that the spinning threads of a machine loaded by several
+    pytest-xdist workers do not dominate (an op on such a tensor took
+    milliseconds there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 K, S, B, N, R = 4, 2, 4, 24, 3
 TOL = 1e-5
 PLATOON = dict(kind="platoon", speed_jitter=0.15, seed=0)

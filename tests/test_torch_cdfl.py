@@ -21,6 +21,19 @@ from repro_torch.core import cdfl as tcdfl
 from repro_torch.core import flatten as tflat
 from repro_torch.models import simple as tsimple
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's tensors here are a few nodes' small MLPs: one intra-op
+    thread, so that the spinning threads of a machine loaded by several
+    pytest-xdist workers do not dominate (an op on such a tensor took
+    milliseconds there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 K, S, B = 4, 10, 32
 # Params and moments after 100 Adam steps agree to this bound, the one
 # tests/test_cdfl.py holds between the JAX package's own lowerings

@@ -32,6 +32,19 @@ from repro_torch.configs.registry import get_smoke_arch
 from repro_torch.core import cdfl as tcdfl
 from repro_torch.models import simple as tsimple
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's tensors here are a few nodes' small MLPs: one intra-op
+    thread, so that the spinning threads of a machine loaded by several
+    pytest-xdist workers do not dominate (an op on such a tensor took
+    milliseconds there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 K, S, B, N = 4, 2, 32, 160
 TOL = 1e-5               # tests/test_torch_cdfl.py's f32 tolerance
 TOL_BF16 = 1e-4          # and its bf16-wire tolerance, over 2 rounds

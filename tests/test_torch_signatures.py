@@ -6,14 +6,16 @@ comparison (no JAX import) of every top-level function and class method of
 ``src/repro/data/synthetic.py``, ``src/repro/mobility/mixing.py``,
 ``src/repro/core/transport.py``, ``src/repro/core/sketch.py``, the three
 modules of ``src/repro/ingest/`` and ``src/repro/models/transformer.py``,
-``moe.py``, ``mamba.py`` and ``stubs.py``, ``src/repro/launch/steps.py``
-and ``roofline.py``, and ``src/repro/optim/adam.py`` and ``schedules.py``
+``moe.py``, ``mamba.py`` and ``stubs.py``, ``src/repro/launch/steps.py``,
+``roofline.py``, ``mesh.py``, ``sharding.py`` and ``dryrun.py``,
+``src/repro/models/pspec.py``, ``src/repro/core/consensus.py``, and
+``src/repro/optim/adam.py`` and ``schedules.py``
 with its twin in ``src/repro_torch``, and of the trainer's batched driver
 and stack builder nested in ``build_trainer``. The leading positional parameters and their
 defaults must match, after dropping the reference's switches that the port
 does not have (``force_kernel``, ``block_*``, ``use_pallas``,
 ``interpret``, ``transport`` but in the roofline, ``flat_local``,
-``unroll``, and ``multi_pod`` until the mesh code) and reading the
+``unroll``, ``use_flat``) and reading the
 reference's ``rng`` as the port's ``generator``; the reference's
 keyword-only parameters must be keyword-only in the port with the same
 defaults. Port-only parameters (``device``, ``s0``) come after;
@@ -51,23 +53,31 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
          ("repro/launch/steps.py", "repro_torch/launch/steps.py"),
          ("repro/optim/adam.py", "repro_torch/optim/adam.py"),
          ("repro/optim/schedules.py", "repro_torch/optim/schedules.py"),
-         ("repro/launch/roofline.py", "repro_torch/launch/roofline.py")]
+         ("repro/launch/roofline.py", "repro_torch/launch/roofline.py"),
+         ("repro/launch/mesh.py", "repro_torch/launch/mesh.py"),
+         ("repro/launch/sharding.py", "repro_torch/launch/sharding.py"),
+         ("repro/models/pspec.py", "repro_torch/models/pspec.py"),
+         ("repro/launch/dryrun.py", "repro_torch/launch/dryrun.py"),
+         ("repro/core/consensus.py", "repro_torch/core/consensus.py")]
 # whole functions that are dispatch switches of the reference (its CPU
-# wire-cast gate among them), and the mesh path of the ring transport with
-# its dtype helper, which wait for ROADMAP queue A item 24
+# wire-cast gate among them, and the one-shot consensus step's choice
+# between a per-leaf and a virtual flat form)
 DROPPED_FUNCTIONS = {"use_pallas", "_interpret", "_fused_wire",
-                     "_cast_noops", "ring_exchange_shard", "_wire_dtype"}
+                     "_cast_noops", "_prefer_flat",
+                     "_consensus_step_perleaf",
+                     "_consensus_step_virtual_flat"}
 DROPPED_CLASSES: set = set()
 DROPPED_METHODS: set = set()
 # the same default in each package's spelling
 SAME_DEFAULT = {"jnp.float32": "torch.float32"}
-# ``unroll`` (the transformer's forward and decode step): straight-line HLO
-# so that XLA's cost analysis counts every layer of a scanned stack, a
-# switch of the reference's dry-run with no meaning outside XLA
-# ``multi_pod`` (the serving steps): the two-pod mesh's sharding rules,
-# which wait for the mesh code (ROADMAP queue A item 24)
+# ``unroll`` (the transformer's forward and decode step, the dry run):
+# straight-line HLO so that XLA's cost analysis counts every layer of a
+# scanned stack, a switch of the reference's dry-run with no meaning
+# outside XLA; its dry run's ``--fast`` flag is the same switch (a layer
+# scan), so the port's dry run has no such flag
+# ``use_flat``: the one-shot consensus step's per-leaf/flat switch
 DROPPED_PARAMS = {"force_kernel", "use_pallas", "interpret", "transport",
-                  "flat_local", "unroll", "multi_pod"}
+                  "flat_local", "unroll", "use_flat"}
 # the same parameter in each package's spelling: a torch.Generator takes
 # the place of a JAX PRNG key
 SAME_NAME = {"rng": "generator"}
@@ -130,9 +140,12 @@ CASES = [(ref_rel, port_rel, name)
 # models/transformer.py, the 4 of moe.py, the 9 of mamba.py and the 2 of
 # stubs.py; then the 9 of launch/steps.py, the 4 of optim/adam.py, the 3
 # of optim/schedules.py and the 5 functions and 9 methods of
-# launch/roofline.py
+# launch/roofline.py; then the two functions core/transport.py's mesh
+# path adds (ring_exchange_shard, _wire_dtype), the 7 of launch/mesh.py,
+# the 12 of launch/sharding.py, the 2 of models/pspec.py, the 3 of
+# launch/dryrun.py and the 8 of core/consensus.py
 CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7 + 11 + 4 \
-    + 9 + 2 + 9 + 4 + 3 + 14
+    + 9 + 2 + 9 + 4 + 3 + 14 + 2 + 7 + 12 + 2 + 3 + 8
 
 
 def test_every_reference_function_is_compared():
@@ -154,7 +167,10 @@ def test_every_reference_function_is_compared():
             "vision_patch_embeddings", "make_fed_train_step",
             "ring_consensus_roll", "fed_state_struct", "decode_state_struct",
             "sgd", "global_norm", "cosine", "model_flops_per_device",
-            "parse_collectives", "Roofline.with_consensus"} <= names
+            "parse_collectives", "Roofline.with_consensus",
+            "ring_exchange_shard", "_wire_dtype", "make_fed_mesh",
+            "fed_param_spec", "with_sharding", "constrain", "dryrun_one",
+            "ring_consensus_shard", "ring_sketch_exchange"} <= names
     assert len(CASES) == CASE_COUNT
 
 

@@ -19,6 +19,19 @@ from repro_torch.core import flatten
 from repro_torch.ingest.sketches import SketchState
 from repro_torch.launch import train as ttrain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's tensors here are a few nodes' small MLPs: one intra-op
+    thread, so that the spinning threads of a machine loaded by several
+    pytest-xdist workers do not dominate (an op on such a tensor took
+    milliseconds there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 QUICK = ["--quick", "--rounds", "3"]
 ROUND = re.compile(r"^round +(\d+) loss/node=\[.*\] mean=([0-9.]+) "
                    r"disagree=\S+ \(\S+s\)$")
