@@ -300,12 +300,23 @@ MESH_GRAD_TOL = 3e-2          # its gradient, of max |value| a leaf
 # and one mesh train step on one-device meshes, against the plain steps
 MESH_DRYRUNS = (("qwen3-1.7b", "train_4k", False),
                 ("qwen3-1.7b", "train_4k", True),
-                ("mixtral-8x7b", "decode_32k", False))
+                ("mixtral-8x7b", "decode_32k", False),
+                # the combos that need each rank's own MoE groups and
+                # rwkv6 rows and heads, and a batch-1 decode with 24
+                # heads over 16 ranks
+                ("mixtral-8x7b", "train_4k", False),
+                ("rwkv6-7b", "prefill_32k", False),
+                ("musicgen-medium", "long_500k", False))
 DRYRUN_TIMEOUT = 600          # seconds a dry-run subprocess may take
 RING_LAYERS = 2
 RING_RTOL, RING_ATOL = 1e-5, 1e-6
 RING_GAMMA = 0.4
 MESH_STEP_ARCH = ("rwkv6-7b", 2)   # the mesh train phase's rwkv6: 2 layers
+# bf16 prefills of SERVE_BATCH x SERVE_PROMPT tokens on the one-device
+# (data, model) mesh: (arch, layers as the serving cell cuts them, the
+# kernel launched once a layer)
+MESH_PREFILLS = (("rwkv6-7b", None, "rwkv6_scan"),
+                 ("mixtral-8x7b", 16, "flash_attention"))
 MESH_CODE_TIMED = 3                # mesh code: steps timed after the first
 
 
@@ -3662,10 +3673,137 @@ def to_mesh(tree, mesh, spec_fn):
     return sharding.tree_map_with_path(place, tree)
 
 
-def mesh_code(dev, add, expect_counts, smi) -> None:
+def mesh_prefill(dev, add, expect_counts, smi, smesh, arch, layers,
+                 kernel) -> None:
+    """``arch``'s bf16 prefill of SERVE_BATCH x SERVE_PROMPT tokens (its
+    first ``layers`` layers, None: every layer) four ways, each one call
+    after a warm-up, host-timed: the plain step; the step with params and
+    batch as DTensors on the one-device ``(data, model)`` mesh ``smesh``
+    (``make_prefill_step(cfg, multi_pod=False)``, which runs a one-device
+    mesh on the local tensors); the model's forward on plain tensors; and
+    the model's forward on those DTensors under the serving rules, which
+    takes the shard-local paths (each rank's MoE groups, rwkv6 rows and
+    heads, attention heads) and launches the kernels on the local
+    tensors. The mesh step's tokens equal the plain step's and the
+    DTensor forward's last logits the plain forward's, bit for bit;
+    ``kernel`` is launched once a layer in every run."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import pspec, transformer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cut_depth(get_arch(arch), layers),
+                              dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(44)
+    params = transformer.init_params(cfg, gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (SERVE_BATCH, SERVE_PROMPT),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    dparams = to_mesh(params, smesh, lambda s, m, n:
+                      sharding.serve_param_spec(s, m, name=n))
+    dbatch = to_mesh(batch, smesh, lambda s, m, n:
+                     sharding.serve_batch_spec(s, m))
+    prefill = steps.make_prefill_step(cfg, multi_pod=False)
+
+    def model(p, b):
+        with torch.no_grad(), pspec.logical_rules(pspec.SERVE_RULES), \
+                implicit_replication():
+            logits, _ = transformer.forward(p, cfg, b, last_only=True)
+        return logits
+
+    runs = {"plain step": lambda: prefill(params, batch),
+            "mesh step": lambda: prefill(dparams, dbatch),
+            "plain model": lambda: model(params, batch),
+            "mesh model": lambda: model(dparams, dbatch)}
+    done = {}
+    for name, fn in runs.items():
+        fn()                                # first use
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        expect = {n: 0 for n in counted()}
+        expect[kernel] = cfg.num_layers
+        expect_counts(f"mesh prefill {arch} {name}", counts, expect)
+        add(counts)
+        if name.startswith("mesh") and not isinstance(out, DTensor):
+            fail(f"mesh prefill {arch} {name}: returned a "
+                 f"{type(out).__name__}, not a DTensor")
+        done[name] = (out.to_local() if isinstance(out, DTensor) else out,
+                      ms, counts[kernel])
+    tokens_equal = torch.equal(done["plain step"][0], done["mesh step"][0])
+    logits_equal = torch.equal(done["plain model"][0],
+                               done["mesh model"][0])
+    diff = (done["plain model"][0].float()
+            - done["mesh model"][0].float()).abs().max().item()
+    print(f"check mesh prefill {arch} {cfg.num_layers} layers bf16 "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} tokens on a one-device (data, "
+          f"model) mesh: step tokens equal to the plain step's: "
+          f"{tokens_equal}; the model on DTensors (shard-local paths), "
+          f"last logits equal to the plain forward's: {logits_equal} (max "
+          f"|diff| {diff:.3e}); ms plain step={done['plain step'][1]:.3f} "
+          f"mesh step={done['mesh step'][1]:.3f} plain model="
+          f"{done['plain model'][1]:.3f} DTensor model="
+          f"{done['mesh model'][1]:.3f} (host-timed, one call each); "
+          f"{kernel} launches a call "
+          f"{'/'.join(str(done[n][2]) for n in runs)} on {smi}",
+          flush=True)
+    if not (tokens_equal and logits_equal):
+        fail(f"mesh prefill {arch}: the one-device mesh differs from the "
+             f"plain prefill")
+    del params, dparams, batch, dbatch, done, out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def start_mesh_dryruns() -> list:
+    """``python -m repro_torch.launch.dryrun`` for each of MESH_DRYRUNS as
+    a subprocess, all at once, killed when the script ends whichever way
+    it ends: ``[(arch, shape, two pods, JSON path, start, process)]``.
+    They run on the host's cores while the card works (the rwkv6-7b x
+    prefill_32k one takes about a minute), each on one thread at the
+    lowest priority, so that the script's host-timed steps keep a core."""
+    import os
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    runs = []
+    for arch, shape, pods in MESH_DRYRUNS:
+        out = out_dir / f"{arch}_{shape}_{'two' if pods else 'one'}_pod.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        runs.append((arch, shape, pods, out, time.perf_counter(),
+                     subprocess.Popen(cmd + (["--multi-pod"] if pods else []),
+                                      cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT,
+                                      preexec_fn=lambda: os.nice(19))))
+
+    def stop_dryruns():
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop_dryruns)
+    return runs
+
+
+def mesh_code(dev, add, expect_counts, smi, runs) -> None:
     """The mesh code: ``python -m repro_torch.launch.dryrun`` on a fake
-    world of 256 or 512 ranks as subprocesses (qwen3-1.7b x train_4k on
-    one and two pods, mixtral-8x7b x decode_32k), their records' devices,
+    world of 256 or 512 ranks as subprocesses (``runs``, started by
+    :func:`start_mesh_dryruns`: qwen3-1.7b x train_4k on one and two pods,
+    mixtral-8x7b x decode_32k and x train_4k, rwkv6-7b x prefill_32k,
+    musicgen-medium x long_500k), their records' devices,
     shard GB, counted FLOPs, collectives and seconds; then, in a one-rank
     world (NCCL for the card, gloo for the CPU, a FileStore under
     ``build/``), ``ring_exchange_shard`` and ``ring_consensus_shard`` on
@@ -3675,12 +3813,14 @@ def mesh_code(dev, add, expect_counts, smi) -> None:
     differences are 0), and timed; the serving
     prefill of qwen3-1.7b at full width through ``make_prefill_step(cfg,
     multi_pod=False)`` with its params and batch as DTensors on a
-    one-device ``("data", "model")`` mesh, and the mesh train step of
-    rwkv6-7b (2 layers, F=2, bf16; four steps, the last three timed, and
-    the memory they allocate above the state) with its state as DTensors
-    on a one-device ``("fed", "dp", "tp")`` mesh (a ring one rank wide),
-    each bit for bit against the plain-tensor step,
-    with B9 and B10 counted."""
+    one-device ``("data", "model")`` mesh, then rwkv6-7b's (every layer)
+    and mixtral-8x7b's (16 layers) bf16 prefills there as steps and as
+    the model on the DTensors (:func:`mesh_prefill`), and the mesh train
+    step of rwkv6-7b (2 layers, F=2, bf16; four steps, the last three
+    timed, and the memory they allocate above the state) with its state
+    as DTensors on a one-device ``("fed", "dp", "tp")`` mesh (a ring one
+    rank wide), each bit for bit against the plain-tensor step, with B9
+    and B10 counted."""
     import os
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -3697,30 +3837,6 @@ def mesh_code(dev, add, expect_counts, smi) -> None:
     print(f"phase mesh code starts with "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated",
           flush=True)
-    out_dir = ROOT / "build" / "dryrun"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = []
-    for arch, shape, pods in MESH_DRYRUNS:
-        out = out_dir / f"{arch}_{shape}_{'two' if pods else 'one'}_pod.json"
-        out.unlink(missing_ok=True)
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--out", str(out)]
-        runs.append((arch, shape, pods, out, time.perf_counter(),
-                     subprocess.Popen(cmd + (["--multi-pod"] if pods else []),
-                                      cwd=ROOT, env=env, text=True,
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT)))
-
-    def stop_dryruns():
-        for *_, proc in runs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-
-    # the dry runs end with the script, whichever way it ends
-    atexit.register(stop_dryruns)
-
     store = ROOT / "build" / f"mesh_store_{os.getpid()}"
     store.unlink(missing_ok=True)
     dist.init_process_group("cpu:gloo,cuda:nccl",
@@ -3841,6 +3957,12 @@ def mesh_code(dev, add, expect_counts, smi) -> None:
     del sparams, results, out, p, b
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+    # -- rwkv6-7b and mixtral-8x7b prefills: the step and the model on the
+    # one-device mesh's DTensors ------------------------------------------
+    for arch, layers, kernel in MESH_PREFILLS:
+        mesh_prefill(dev, add, expect_counts, smi, smesh, arch, layers,
+                     kernel)
 
     # -- one mesh train step on a one-device ("fed", "dp", "tp") mesh -----
     arch, layers = MESH_STEP_ARCH
@@ -5282,7 +5404,7 @@ def main() -> None:
     llm_training(dev, add, expect_counts)
     model_families(dev, rows, record, add, expect_counts, bf16_ulp)
     mesh_train(dev, add, expect_counts, smi)
-    mesh_code(dev, add, expect_counts, smi)
+    mesh_code(dev, add, expect_counts, smi, start_mesh_dryruns())
 
     # -- 10. kernel table -------------------------------------------------
     sources = {"flat_mix": ("src/repro_torch/csrc/consensus_mix.cu",

@@ -80,6 +80,60 @@ def cluster_mix(idx: torch.Tensor, val: torch.Tensor, master: torch.Tensor,
     return master + g[:, None] * (mixed - row[:, None] * wself.float())
 
 
+# --- the per-leaf consensus path (oracle for the flat-buffer engine) --------
+# Trees are dicts (str keys) and lists of (K, ...) tensors, their leaves in
+# the order ``jax.tree.flatten`` gives (``core.flatten.leaves_with_paths``).
+
+def apply_matrix_pytree(params, matrix: torch.Tensor):
+    """Leaf at a time phi = A @ W: one einsum a leaf, in the leaf's dtype.
+    The ground truth the flat path is held against."""
+    from repro_torch.core import flatten
+
+    def mix(leaf):
+        flat = leaf.reshape(leaf.shape[0], -1)
+        out = torch.einsum("ki,id->kd", matrix.to(flat.dtype), flat)
+        return out.reshape(leaf.shape)
+    return flatten.tree_map(mix, params)
+
+
+def consensus_step_pytree(params, eta: torch.Tensor, gamma,
+                          self_weight: float = 1.0):
+    """Paper eq. (5) per leaf: phi_k = sw*W_k + g * sum_i eta_ki (W_i-W_k),
+    the operator A = sw*I + g*(eta - diag(rowsum))."""
+    from repro_torch.core import topology
+    k = eta.shape[0]
+    a = topology.consensus_matrix(eta, gamma)
+    if self_weight != 1.0:
+        a = a + (self_weight - 1.0) * torch.eye(k, dtype=a.dtype,
+                                                device=a.device)
+    return apply_matrix_pytree(params, a)
+
+
+def partial_consensus_step_pytree(params, eta: torch.Tensor, gamma,
+                                  fraction: float):
+    """C-DFA(M) per leaf: mix the first max(1, round(f * n_leaves))
+    leaves, keep the rest."""
+    from repro_torch.core import flatten, topology
+    pairs = flatten.leaves_with_paths(params)
+    n_mix = max(1, int(round(fraction * len(pairs))))
+    a = topology.consensus_matrix(eta, gamma)
+    return flatten.build_tree(
+        [path for path, _ in pairs],
+        [apply_matrix_pytree(leaf, a) if i < n_mix else leaf
+         for i, (_, leaf) in enumerate(pairs)])
+
+
+def disagreement_pytree(params) -> torch.Tensor:
+    """Per-leaf mean squared deviation from the node mean, summed over the
+    leaves (each leaf's sum in its dtype) and divided by the element
+    count."""
+    from repro_torch.core import flatten
+    leaves = [leaf for _, leaf in flatten.leaves_with_paths(params)]
+    total = sum(torch.sum((leaf - leaf.mean(dim=0, keepdim=True)) ** 2)
+                for leaf in leaves)
+    return total / sum(leaf.numel() for leaf in leaves)
+
+
 # candidates per column chunk of robust_agg: 2**25 f32 values, 128 MB
 ROBUST_CHUNK_ELEMS = 1 << 25
 

@@ -118,7 +118,19 @@ def forward(params, cfg: ModelConfig, x, positions=None,
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = window_override if window_override is not None \
         else cfg.sliding_window
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    # on a mesh (port-only): each rank attends its own batch rows and
+    # heads, through the kernel on the card, when q's and k/v's head
+    # shards line up (every head dim whole, or KV divisible by the head
+    # shards); else on the DTensors (:func:`attend`'s repeat first)
+    q, k, v = (pspec.constrain(t, "batch", None, "heads", None)
+               for t in (q, k, v))
+
+    def fa(q, k, v):
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+
+    out = pspec.local_shards(fa, (q, k, v), dims=(0, 2))
+    if out is None:
+        out = fa(q, k, v)
     # on a mesh (port-only): the merged heads over the head shards, so that
     # their gradient reaches the merge's backward placed as in the forward
     out = pspec.constrain(out.reshape(b, s, -1), "batch", None, "heads")

@@ -81,7 +81,9 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
 
     Gather-based dispatch into a static (E, C) slot table per group of
     ``group_size`` tokens; (token, choice) pairs past an expert's capacity
-    C are dropped."""
+    C are dropped. Routing, dispatch and combine are per group: on a mesh
+    (port-only) they run on this rank's own groups (``pspec.map_shards``)
+    and only the expert products run on the DTensors."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     tokens = x.reshape(-1, d)
@@ -94,7 +96,47 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
     cap = _capacity(gs, e, k, cfg.capacity_factor)
 
     xg = pspec.constrain(xg, "batch", None, None)   # groups follow batch
-    probs, gate_vals, idx = route(params, cfg, xg)           # (g, gs, k)
+    groups = (0, None, None)                 # a (g, ...) tensor's layout
+    args = (xg, params["router"])
+    dispatch = pspec.map_shards(
+        lambda xg, router: _dispatch(xg, router, cfg, cap), args,
+        (groups, (None, None)),
+        ((0, None, None, None), groups, groups, groups, groups, (0,)))
+    if dispatch is None:
+        dispatch = _dispatch(*args, cfg, cap)
+    xin, gate_vals, idx, pos, keep, aux = dispatch
+    xin = pspec.constrain(xin, "batch", None, None, None)
+    # on a mesh (port-only): the experts whole but for their ffn shards (an
+    # FSDP gather), so that each rank multiplies its own groups; DTensor
+    # fails to place the products of FSDP-sharded experts on real tensors
+    w_gate, w_up = (pspec.constrain(params[name], None, None, "ffn")
+                    for name in ("w_gate", "w_up"))
+    w_down = pspec.constrain(params["w_down"], None, "ffn", None)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xin, w_gate))
+    h = h * torch.einsum("gecd,edf->gecf", xin, w_up)
+    h = pspec.constrain(h, "batch", None, None, "ffn")
+    expert_out = torch.einsum("gecf,efd->gecd", h, w_down)
+    expert_out = pspec.constrain(expert_out, "batch", None, None, None)
+
+    args = (expert_out, gate_vals, keep, idx, pos)
+    out = pspec.map_shards(
+        lambda *a: _combine(*a, x.dtype), args,
+        ((0, None, None, None),) + (groups,) * 4, (groups,))
+    if out is None:
+        out = _combine(*args, x.dtype)
+    out = pspec.constrain(out, "batch", None, None)
+    return out.reshape(b, s, d), aux.mean()
+
+
+def _dispatch(xg, router, cfg: ModelConfig, cap: int):
+    """Route the groups xg (g, gs, d) and gather each expert's tokens:
+    (xin (g, E, C, d), gates (g, gs, k), expert ids (g, gs, k), queue
+    positions (g, gs, k), kept pairs (g, gs, k), the load-balance loss of
+    each group (g,)). Group by group: a rank runs it on its own groups."""
+    g, gs, d = xg.shape
+    e = cfg.num_experts
+    k = cfg.experts_per_token
+    probs, gate_vals, idx = route({"router": router}, cfg, xg)
     mask, pos = queue_positions(idx, e)
     keep = pos < cap
 
@@ -104,35 +146,33 @@ def forward(params, cfg: ModelConfig, x, group_size: int = 2048):
     # writes land only there.
     slot = torch.where(keep, pos, cap)
     lin = (idx * (cap + 1) + slot).reshape(g, gs * k)
-    tok_ids = torch.arange(gs, device=x.device).repeat_interleave(k)
+    tok_ids = torch.arange(gs, device=xg.device).repeat_interleave(k)
     table = torch.full((g, e * (cap + 1)), gs, dtype=torch.int64,
-                       device=x.device)
+                       device=xg.device)
     table.scatter_(1, lin, tok_ids.expand(g, gs * k))
     table = table.reshape(g, e, cap + 1)[..., :cap]          # (g, E, C)
 
     xpad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)
-    g_idx = torch.arange(g, device=x.device)[:, None, None]
+    g_idx = torch.arange(g, device=xg.device)[:, None, None]
     xin = xpad[g_idx, table]                                  # (g, E, C, d)
-    xin = pspec.constrain(xin, "batch", None, None, None)
-    h = F.silu(torch.einsum("gecd,edf->gecf", xin, params["w_gate"]))
-    h = h * torch.einsum("gecd,edf->gecf", xin, params["w_up"])
-    h = pspec.constrain(h, "batch", None, None, "ffn")
-    expert_out = torch.einsum("gecf,efd->gecd", h, params["w_down"])
-    expert_out = pspec.constrain(expert_out, "batch", None, None, None)
 
-    # combine: gather each token's k expert outputs, gate-weight, sum
-    eo = expert_out.reshape(g, e * cap, d)
-    lin2 = torch.clamp_max(idx * cap + pos, e * cap - 1)     # (g, gs, k)
-    gathered = eo[g_idx, lin2]                                # (g, gs, k, d)
-    w = (gate_vals * keep).to(x.dtype)
-    out = torch.einsum("gsk,gskd->gsd", w, gathered)
-    out = pspec.constrain(out, "batch", None, None)
-
-    # Switch load-balance auxiliary loss: E * sum_e f_e * P_e
+    # Switch load-balance auxiliary loss: E * sum_e f_e * P_e a group
     frac_dispatched = mask.sum(dim=2).mean(dim=1)             # (g, E)
     mean_prob = probs.mean(dim=1)                             # (g, E)
-    aux = (e * (frac_dispatched * mean_prob).sum(dim=-1)).mean()
-    return out.reshape(b, s, d), aux
+    aux = e * (frac_dispatched * mean_prob).sum(dim=-1)       # (g,)
+    return xin, gate_vals, idx, pos, keep, aux
+
+
+def _combine(expert_out, gate_vals, keep, idx, pos, dtype):
+    """Gather each token's k expert outputs from expert_out (g, E, C, d),
+    gate-weight them and sum: (g, gs, d). Group by group."""
+    g, e, cap, d = expert_out.shape
+    eo = expert_out.reshape(g, e * cap, d)
+    lin2 = torch.clamp_max(idx * cap + pos, e * cap - 1)     # (g, gs, k)
+    g_idx = torch.arange(g, device=expert_out.device)[:, None, None]
+    gathered = eo[g_idx, lin2]                                # (g, gs, k, d)
+    w = (gate_vals * keep).to(dtype)
+    return torch.einsum("gsk,gskd->gsd", w, gathered)
 
 
 def _per_expert(tokens, w):

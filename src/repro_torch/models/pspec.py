@@ -87,24 +87,78 @@ def local_shards(fn, tensors, dims):
     batch and heads) and returns a tensor of ``tensors[0]``'s shape, when
     every tensor is a DTensor sharded only along those dims, all alike.
     None otherwise — a plain tensor included — and the caller runs on the
-    tensors themselves."""
+    tensors themselves (:func:`map_shards` with one layout for all)."""
     x = tensors[0]
     if type(x) is torch.Tensor:
         return None
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not all(isinstance(t, DTensor) for t in tensors):
+    from torch.distributed.tensor import DTensor
+    if not all(isinstance(t, DTensor) for t in tensors) or any(
+            tuple(t.placements) != tuple(x.placements) for t in tensors):
         return None
-    placements = tuple(x.placements)
-    if any(tuple(t.placements) != placements for t in tensors) or any(
-            not (isinstance(p, Replicate) or isinstance(p, Shard)
-                 and p.dim in dims) for p in placements):
+    layout = tuple(d if d in dims else None for d in range(x.dim()))
+    return map_shards(fn, tensors, (layout,) * len(tensors), (layout,))
+
+
+def map_shards(fn, tensors, layouts, out_layouts):
+    """``fn`` of this rank's shards, for a function that works row by row
+    along some dims of ``tensors[0]`` (the MoE's token groups, the wkv
+    scan's batch rows and heads) while its other inputs and its outputs
+    hold those dims elsewhere, or not at all. ``layouts[i]`` gives, for
+    each dim of ``tensors[i]``, the dim of ``tensors[0]`` it indexes alike,
+    or None; ``out_layouts`` does so for each output of ``fn``.
+
+    When ``tensors[0]`` is a DTensor sharded only along dims that its
+    layout names, every other input is placed to match (a dim it lacks is
+    whole on each rank, and its gradient is summed over those ranks),
+    ``fn`` runs on the local tensors, and each output comes back as a
+    DTensor placed alike, its named dims of ``tensors[0]``'s global
+    sizes. A None input passes through. Returns None otherwise — a plain
+    tensor included — and the caller runs ``fn`` on the tensors
+    themselves."""
+    x = tensors[0]
+    if type(x) is torch.Tensor:
         return None
-    # contiguous, as the global strides declared for it
-    out = fn(*(t.to_local() for t in tensors)).contiguous()
-    return DTensor.from_local(out, x.device_mesh, placements,
-                              run_check=False, shape=x.shape,
-                              stride=torch.empty(x.shape,
-                                                 device="meta").stride())
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return None
+    mesh, ref = x.device_mesh, tuple(x.placements)
+    if any(not (isinstance(p, Replicate) or type(p) is Shard
+                and layouts[0][p.dim] == p.dim) for p in ref):
+        return None
+
+    def placements(layout, grad=False):
+        out = []
+        for p in ref:
+            if isinstance(p, Shard) and p.dim in layout:
+                out.append(Shard(layout.index(p.dim)))
+            else:
+                out.append(Partial() if grad and isinstance(p, Shard)
+                           else Replicate())
+        return tuple(out)
+
+    local = []
+    for t, layout in zip(tensors, layouts):
+        if t is None:
+            local.append(None)
+            continue
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = placements(layout)
+        if tuple(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        local.append(t.to_local(grad_placements=placements(layout, True)))
+    outs = fn(*local)
+    single = isinstance(outs, torch.Tensor)
+    placed = []
+    for out, layout in zip((outs,) if single else outs, out_layouts):
+        shape = tuple(s if d is None else x.shape[d]
+                      for s, d in zip(out.shape, layout))
+        # contiguous, as the global strides declared for it
+        placed.append(DTensor.from_local(
+            out.contiguous(), mesh, placements(layout), run_check=False,
+            shape=shape, stride=torch.empty(shape, device="meta").stride()))
+    return placed[0] if single else tuple(placed)
 
 
 def gather_dim(x: torch.Tensor, dim: int):

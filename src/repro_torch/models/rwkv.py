@@ -13,7 +13,8 @@ sequence is longer than one token and a multiple of ``CHUNK``, else the
 sequential ``scan_reference``. ``chunked`` goes through
 :func:`repro_torch.kernels.ops.rwkv6_scan`: kernel B10 on a CUDA tensor
 (from the given state, if any), its plain version on a CPU tensor. Decode
-(one token) runs ``scan_reference``, as in the JAX package.
+(one token) runs ``scan_reference``, as in the JAX package. On a mesh
+each rank runs the recurrence on its own batch rows and heads.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, pspec
 
 HEAD_SIZE = 64
 LORA_RANK = 64
@@ -84,8 +85,12 @@ def _mix(params, x, xs):
     r = lerp("mu_r") @ params["wr"]
     k = lerp("mu_k") @ params["wk"]
     v = lerp("mu_v") @ params["wv"]
-    lw = params["decay_w0"] + torch.tanh(
-        lerp("mu_w") @ params["decay_a"]) @ params["decay_b"]
+    # on a mesh (port-only): the LoRA's rank-64 hidden whole on every rank
+    # before its second product (torch 2.11's DTensor plans that product
+    # on a sharded rank dim through a redistribution it cannot run)
+    hidden = pspec.constrain(torch.tanh(lerp("mu_w") @ params["decay_a"]),
+                             "batch", None, None)
+    lw = params["decay_w0"] + hidden @ params["decay_b"]
     # clamp the per-step log-decay to [-MAX_LOG_DECAY, 0), in f32
     w = torch.exp(-torch.clamp(torch.exp(lw.float()), 1e-6, MAX_LOG_DECAY))
     g = F.silu(x @ params["wg"])
@@ -119,6 +124,16 @@ def chunked(r, k, v, w, u, s0=None, chunk: int = CHUNK):
     return ops.rwkv6_scan(r, k, v, w, u, chunk=chunk, s0=s0)
 
 
+def _wkv(r, k, v, w, u, s0):
+    """The wkv recurrence by the reference's rule: :func:`chunked` when
+    the sequence is longer than one token and a multiple of ``CHUNK``,
+    else :func:`scan_reference`."""
+    seq = r.shape[1]
+    if seq > 1 and seq % CHUNK == 0:
+        return chunked(r, k, v, w, u, s0)
+    return scan_reference(r, k, v, w, u, s0)
+
+
 def forward(params, cfg: ModelConfig, x, state: RwkvState | None = None):
     """x: (B, S, d_model) -> (out, new_state)."""
     b, seq, d = x.shape
@@ -131,10 +146,17 @@ def forward(params, cfg: ModelConfig, x, state: RwkvState | None = None):
     wh = _heads(w, h, hs)
     u = params["bonus_u"].float()
     s0 = state.s if state is not None else None
-    if seq > 1 and seq % CHUNK == 0:
-        y, s_fin = chunked(rh, kh, vh, wh, u, s0)
-    else:
-        y, s_fin = scan_reference(rh, kh, vh, wh, u, s0)
+    # on a mesh (port-only): the recurrence is independent per (batch row,
+    # head), so each rank scans its own shards (u sliced to its heads, the
+    # state placed alike), as attention attends them
+    rh, kh, vh, wh = (pspec.constrain(t, "batch", None, "heads", None)
+                      for t in (rh, kh, vh, wh))
+    heads, state_dims = (0, None, 2, None), (0, 2, None, None)
+    args = (rh, kh, vh, wh, u, s0)
+    out = pspec.map_shards(_wkv, args, (heads,) * 4 + ((2, None),
+                                                        state_dims),
+                           (heads, state_dims))
+    y, s_fin = _wkv(*args) if out is None else out
     y = y.reshape(b, seq, d).to(x.dtype) * g
     out = y @ params["wo"]
     return out, RwkvState(s=s_fin, x_prev=x[:, -1, :])

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 
 class Registry:
@@ -43,23 +43,30 @@ class Registry:
         self.kind = kind
         self._entries: dict[str, Any] = {}
 
-    def register(self, name: str, obj: Any = None):
-        """``register("x", obj)`` or the ``@register("x")`` decorator."""
+    def register(self, name: str, obj: Any = None, *,
+                 overwrite: bool = False):
+        """``register("x", obj)`` or the ``@register("x")`` decorator; a
+        name already registered is refused unless ``overwrite``."""
         if obj is None:
             def deco(fn):
-                self._add(name, fn)
+                self._add(name, fn, overwrite)
                 return fn
             return deco
-        self._add(name, obj)
+        self._add(name, obj, overwrite)
         return obj
 
-    def _add(self, name: str, obj: Any) -> None:
+    def _add(self, name: str, obj: Any, overwrite: bool) -> None:
         if not isinstance(name, str) or not name:
             raise ValueError(f"{self.kind} plugin name must be a non-empty "
                              f"string, got {name!r}")
-        if name in self._entries:
-            raise ValueError(f"{self.kind} {name!r} already registered")
+        if name in self._entries and not overwrite:
+            raise ValueError(
+                f"{self.kind} {name!r} already registered "
+                f"(pass overwrite=True to replace it)")
         self._entries[name] = obj
+
+    def unregister(self, name: str) -> None:
+        self._entries.pop(name, None)
 
     def get(self, name: str) -> Any:
         try:
@@ -70,30 +77,57 @@ class Registry:
                 f"(registered: {', '.join(self.names()) or '<none>'})"
             ) from None
 
+    def validate(self, name: str) -> str:
+        """Raise the listing ValueError unless ``name`` is registered."""
+        self.get(name)
+        return name
+
     def names(self) -> tuple[str, ...]:
         return tuple(sorted(self._entries))
 
-    def view(self) -> "RegistryView":
+    def __contains__(self, name: object) -> bool:
+        return name in self._entries
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.names())
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __repr__(self) -> str:
+        return f"Registry({self.kind!r}: {list(self.names())})"
+
+    def view(self, transform: Optional[Callable] = None) -> "RegistryView":
         """Live read-only Mapping over the registry (the reference's
-        module-level views such as ``transport.TRANSPORTS``)."""
-        return RegistryView(self)
+        module-level views such as ``transport.TRANSPORTS``), each plugin
+        passed through ``transform`` when one is given."""
+        return RegistryView(self, transform)
 
 
 class RegistryView(Mapping):
     """Read-only live Mapping over a :class:`Registry`: plugins registered
     after it was made show up in it."""
 
-    def __init__(self, registry: Registry):
+    def __init__(self, registry: Registry,
+                 transform: Optional[Callable] = None):
         self._registry = registry
+        self._transform = transform
 
     def __getitem__(self, name: str) -> Any:
-        return self._registry.get(name)
+        obj = self._registry.get(name)
+        return self._transform(obj) if self._transform else obj
 
     def __iter__(self) -> Iterator[str]:
-        return iter(self._registry.names())
+        return iter(self._registry)
 
     def __len__(self) -> int:
-        return len(self._registry.names())
+        return len(self._registry)
+
+    def __contains__(self, name: object) -> bool:
+        return name in self._registry
+
+    def __repr__(self) -> str:
+        return f"RegistryView({self._registry!r})"
 
 
 @dataclasses.dataclass(frozen=True)

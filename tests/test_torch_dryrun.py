@@ -2,13 +2,18 @@
 package's specs and roofline, with nothing allocated:
 
 * ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b x decode_32k and
-  x train_4k on the single-pod mesh, each in a subprocess (the reference's
-  dry run is never imported here: it sets ``XLA_FLAGS`` when imported);
+  x train_4k on the single-pod mesh, and for the one-pod combos that
+  failed before the MoE dispatch and the rwkv6 scan ran on each rank's
+  shards (mixtral-8x7b x train_4k and x prefill_32k, dbrx-132b x
+  train_4k, rwkv6-7b x prefill_32k, musicgen-medium x long_500k), each in a subprocess, all at once, each under its own time
+  limit (the reference's dry run is never imported here: it sets
+  ``XLA_FLAGS`` when imported);
 * each record has the reference's keys (``dryrun.py``'s record and
   ``Roofline.row()``), ``temps`` null;
 * its ``arguments`` bytes equal the local shard bytes the reference's
-  specs imply on the same mesh; its model FLOPs and consensus wire bytes
-  equal the reference's functions';
+  specs imply on the same mesh (every combo); its model FLOPs and
+  consensus wire bytes equal the reference's functions' (qwen3); the
+  per-arch policy is the reference's;
 * a failing step goes to ``failures`` and exits 1, and the fake group is
   destroyed whatever happened.
 """
@@ -36,31 +41,58 @@ from repro.launch import sharding as jsharding
 from repro.launch import steps as jsteps
 
 ROOT = Path(__file__).resolve().parents[1]
-FED = SimpleNamespace(axis_names=("fed", "dp", "tp"),
-                      shape={"fed": 4, "dp": 4, "tp": 16})
 PROD = SimpleNamespace(axis_names=("data", "model"),
                        shape={"data": 16, "model": 16})
 SHAPES = ("decode_32k", "train_4k")
+# the one-pod combos that failed before each rank routed its own MoE
+# groups and scanned its own rwkv6 rows and heads, each at full depth
+FORMER_FAILURES = (("mixtral-8x7b", "train_4k"),
+                   ("mixtral-8x7b", "prefill_32k"),
+                   ("dbrx-132b", "train_4k"),
+                   ("rwkv6-7b", "prefill_32k"),
+                   ("musicgen-medium", "long_500k"))
+COMBOS = tuple(("qwen3-1.7b", shape) for shape in SHAPES) \
+    + FORMER_FAILURES
+TIMEOUT = 600                 # seconds a dry-run subprocess may take
 
 
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
+    """Every combo's dry run as a subprocess, all at once, each waited for
+    under its own time limit and killed on the way out: ``{(arch,
+    shape): (exit code, output, JSON or None)}``."""
     out = tmp_path_factory.mktemp("dryrun")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    procs = {shape: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-1.7b", "--shape", shape, "--out", str(out / f"{shape}.json")],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for shape in SHAPES}
-    recs = {}
-    for shape, proc in procs.items():
-        text, _ = proc.communicate(timeout=600)
-        assert proc.returncode == 0, text[-4000:]
-        assert "1 ok, 0 failed" in text
-        data = json.loads((out / f"{shape}.json").read_text())
-        assert data["failures"] == []
-        recs[shape] = data["records"][0]
-    return recs
+    procs = {}
+    done = {}
+    try:
+        for arch, shape in COMBOS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out",
+                   str(out / f"{arch}_{shape}.json")]
+            procs[arch, shape] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        for (arch, shape), proc in procs.items():
+            text, _ = proc.communicate(timeout=TIMEOUT)
+            path = out / f"{arch}_{shape}.json"
+            done[arch, shape] = (proc.returncode, text, json.loads(
+                path.read_text()) if path.exists() else None)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def _record(records, arch, shape):
+    """The combo's one record, after its run printed ``1 ok, 0 failed``."""
+    rc, text, data = records[arch, shape]
+    assert rc == 0, text[-4000:]
+    assert "1 ok, 0 failed" in text
+    assert data["failures"] == []
+    return data["records"][0]
 
 
 def _reference_record_keys():
@@ -98,25 +130,49 @@ def _spec_tree(tree, fn, mesh):
                         else jax.sharding.PartitionSpec(), tree)
 
 
-def _reference_arguments(shape_name: str) -> int:
-    cfg = JARCHS["qwen3-1.7b"]
+def _reference_policy():
+    """FED_NODES, DEFAULT_FED and LONG_WINDOW of the reference's dry run,
+    read from its source (importing it sets ``XLA_FLAGS``)."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    return {node.targets[0].id: ast.literal_eval(node.value)
+            for node in tree.body if isinstance(node, ast.Assign)
+            and getattr(node.targets[0], "id", None) in (
+                "FED_NODES", "DEFAULT_FED", "LONG_WINDOW")}
+
+
+def _reference_arguments(shape_name: str,
+                         arch: str = "qwen3-1.7b") -> int:
+    """The bytes of this rank's shards of the step's inputs, by the
+    reference's structs and specs on the single-pod mesh."""
+    policy = _reference_policy()
+    cfg = JARCHS[arch]
     shape = jbase.INPUT_SHAPES[shape_name]
     if shape.mode == "train":
-        state = jsteps.fed_state_struct(cfg, 4, jbase.TrainConfig(
+        f = policy["FED_NODES"].get(arch, policy["DEFAULT_FED"])
+        fed = SimpleNamespace(axis_names=("fed", "dp", "tp"),
+                              shape={"fed": f, "dp": 16 // f, "tp": 16})
+        state = jsteps.fed_state_struct(cfg, f, jbase.TrainConfig(
             remat="full"))
-        fsdp = cfg.param_count() * 10 / FED.shape["tp"] > 4e9
-        specs = jsharding._tree_specs(state, jsharding.fed_param_spec, FED,
+        fsdp = cfg.param_count() * 10 / fed.shape["tp"] > 4e9
+        specs = jsharding._tree_specs(state, jsharding.fed_param_spec, fed,
                                       fsdp=fsdp)
-        batch = jsteps.input_specs(cfg, shape, 4)
-        return _local_bytes(state, specs, FED) + _local_bytes(
-            batch, _spec_tree(batch, jsharding.fed_batch_spec, FED), FED)
+        batch = jsteps.input_specs(cfg, shape, f)
+        return _local_bytes(state, specs, fed) + _local_bytes(
+            batch, _spec_tree(batch, jsharding.fed_batch_spec, fed), fed)
     params = jsteps.serve_params_struct(cfg)
     fsdp = cfg.param_count() * 2 / PROD.shape["model"] > 8e9
     specs = jsharding._tree_specs(params, jsharding.serve_param_spec, PROD,
                                   fsdp=fsdp)
-    dstate = jsteps.decode_state_struct(cfg, shape)
+    total = _local_bytes(params, specs, PROD)
+    if shape.mode == "prefill":
+        batch = jsteps.input_specs(cfg, shape)
+        return total + _local_bytes(batch, _spec_tree(
+            batch, jsharding.serve_batch_spec, PROD), PROD)
+    window = policy["LONG_WINDOW"] if shape_name == "long_500k" \
+        and cfg.num_heads > 0 and cfg.sliding_window is None else None
+    dstate = jsteps.decode_state_struct(cfg, shape, window_override=window)
     tokens = jsteps.input_specs(cfg, shape)["tokens"]
-    return (_local_bytes(params, specs, PROD)
+    return (total
             + _local_bytes(dstate, _spec_tree(dstate, jsharding.cache_spec,
                                               PROD), PROD)
             + _local_bytes(tokens, jsharding.serve_batch_spec(
@@ -125,7 +181,7 @@ def _reference_arguments(shape_name: str) -> int:
 
 @pytest.mark.parametrize("shape_name", SHAPES)
 def test_record_matches_the_reference(records, shape_name):
-    rec = records[shape_name]
+    rec = _record(records, "qwen3-1.7b", shape_name)
     keys, byte_keys = _reference_record_keys()
     row = jroofline.Roofline(1.0, 1.0, 1.0, jroofline.CollectiveStats(),
                              1.0).row()
@@ -160,6 +216,31 @@ def test_record_matches_the_reference(records, shape_name):
     else:
         assert rec["consensus_wire_bytes_per_node"] == 0.0
         assert rec["fed_nodes"] == 0
+
+
+@pytest.mark.parametrize("arch,shape_name", FORMER_FAILURES,
+                         ids=[f"{a}-{s}" for a, s in FORMER_FAILURES])
+def test_former_failure_runs_with_the_reference_arguments(records, arch,
+                                                          shape_name):
+    """The MoE's dispatch on each rank's groups (mixtral, dbrx), the rwkv6
+    scan on each rank's rows and heads and musicgen's batch-1 decode with
+    24 heads over 16 ranks run on the single-pod mesh; the step's
+    arguments are the shards the reference's specs imply."""
+    rec = _record(records, arch, shape_name)
+    assert rec["arch"] == arch and rec["devices"] == 256
+    assert rec["bytes_per_device"]["arguments"] == _reference_arguments(
+        shape_name, arch)
+    assert rec["bytes_per_device"]["outputs"] > 0
+    assert rec["hlo_gflops"] > 0 and rec["hbm_gb"] > 0
+    assert set(rec["collective_counts"]) == set(rec["collective_bytes"])
+
+
+def test_policy_is_the_reference_policy():
+    from repro_torch.launch import dryrun
+    policy = _reference_policy()
+    assert dryrun.FED_NODES == policy["FED_NODES"]
+    assert dryrun.DEFAULT_FED == policy["DEFAULT_FED"]
+    assert dryrun.LONG_WINDOW == policy["LONG_WINDOW"]
 
 
 def test_failures_exit_one_and_the_fake_group_is_destroyed(monkeypatch,

@@ -307,6 +307,53 @@ def test_gather_dim_and_local_shards(fake_world):
     assert pspec.local_shards(lambda a: a, (x,), dims=(0,)) is None
 
 
+def test_map_shards_places_inputs_and_outputs_by_layout(fake_world):
+    """The wkv scan's layouts: r (B, S, H, D) over batch and 24 heads on
+    16 ranks (uneven), u (H, D) sliced to the rank's heads, a state (B, H,
+    D, D) placed over its last dim but one redistributed over heads; the
+    outputs' global shapes from r's; None passes through; a plain tensor
+    or a shard along a dim the layout does not name is refused."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    node = DeviceMesh("cpu", torch.arange(64).reshape(4, 16),
+                      mesh_dim_names=("dp", "tp"))
+
+    def meta(shape, placements):
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        local, _ = compute_local_shape_and_global_offset(shape, node,
+                                                         placements)
+        return DTensor.from_local(torch.empty(local, device="meta"), node,
+                                  placements, run_check=False, shape=shape,
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    r = meta((8, 16, 24, 64), [Shard(0), Shard(2)])
+    u = meta((24, 64), [Replicate(), Replicate()])
+    s0 = meta((8, 24, 64, 64), [Shard(0), Shard(2)])
+    seen = {}
+
+    def fn(r, u, s0, none):
+        seen.update(r=tuple(r.shape), u=tuple(u.shape), s0=tuple(s0.shape),
+                    none=none)
+        return r * 2, s0 + 1
+
+    heads, state = (0, None, 2, None), (0, 2, None, None)
+    y, s = pspec.map_shards(fn, (r, u, s0, None),
+                            (heads, (2, None), state, None), (heads, state))
+    # rank 0 holds 2 of the 8 rows and 2 of the 24 heads (chunks of 2)
+    assert seen == {"r": (2, 16, 2, 64), "u": (2, 64),
+                    "s0": (2, 2, 64, 64), "none": None}
+    assert tuple(y.shape) == (8, 16, 24, 64)
+    assert tuple(y.placements) == (Shard(0), Shard(2))
+    assert tuple(s.shape) == (8, 24, 64, 64)
+    assert tuple(s.placements) == (Shard(0), Shard(1))
+    assert pspec.map_shards(fn, (torch.ones(2),), ((0,),), ((0,),)) is None
+    assert pspec.map_shards(fn, (r, u, s0, None), ((0, None, None, None),
+                                                   (None, None), state, None),
+                            (heads, state)) is None
+
+
 def test_a_cuda_mesh_of_several_devices_is_refused():
     several = SimpleNamespace(size=lambda: 4)
     one = SimpleNamespace(size=lambda: 1)

@@ -8,8 +8,9 @@ comparison (no JAX import) of every top-level function and class method of
 modules of ``src/repro/ingest/`` and ``src/repro/models/transformer.py``,
 ``moe.py``, ``mamba.py`` and ``stubs.py``, ``src/repro/launch/steps.py``,
 ``roofline.py``, ``mesh.py``, ``sharding.py`` and ``dryrun.py``,
-``src/repro/models/pspec.py``, ``src/repro/core/consensus.py``, and
-``src/repro/optim/adam.py`` and ``schedules.py``
+``src/repro/models/pspec.py``, ``src/repro/core/consensus.py``,
+``src/repro/optim/adam.py`` and ``schedules.py``, and
+``src/repro/kernels/ref.py`` and ``src/repro/registry.py``
 with its twin in ``src/repro_torch``, and of the trainer's batched driver
 and stack builder nested in ``build_trainer``. The leading positional parameters and their
 defaults must match, after dropping the reference's switches that the port
@@ -58,7 +59,9 @@ PAIRS = [("repro/kernels/ops.py", "repro_torch/kernels/ops.py"),
          ("repro/launch/sharding.py", "repro_torch/launch/sharding.py"),
          ("repro/models/pspec.py", "repro_torch/models/pspec.py"),
          ("repro/launch/dryrun.py", "repro_torch/launch/dryrun.py"),
-         ("repro/core/consensus.py", "repro_torch/core/consensus.py")]
+         ("repro/core/consensus.py", "repro_torch/core/consensus.py"),
+         ("repro/kernels/ref.py", "repro_torch/kernels/ref.py"),
+         ("repro/registry.py", "repro_torch/registry.py")]
 # whole functions that are dispatch switches of the reference (its CPU
 # wire-cast gate among them, and the one-shot consensus step's choice
 # between a per-leaf and a virtual flat form)
@@ -143,9 +146,10 @@ CASES = [(ref_rel, port_rel, name)
 # launch/roofline.py; then the two functions core/transport.py's mesh
 # path adds (ring_exchange_shard, _wire_dtype), the 7 of launch/mesh.py,
 # the 12 of launch/sharding.py, the 2 of models/pspec.py, the 3 of
-# launch/dryrun.py and the 8 of core/consensus.py
+# launch/dryrun.py and the 8 of core/consensus.py; then the 11 of
+# kernels/ref.py and the 6 functions and 18 methods of registry.py
 CASE_COUNT = 62 + 2 + 2 + 7 + 1 + 1 + 10 + 2 + 22 + 15 + 7 + 5 + 7 + 11 + 4 \
-    + 9 + 2 + 9 + 4 + 3 + 14 + 2 + 7 + 12 + 2 + 3 + 8
+    + 9 + 2 + 9 + 4 + 3 + 14 + 2 + 7 + 12 + 2 + 3 + 8 + 11 + 24
 
 
 def test_every_reference_function_is_compared():
@@ -170,7 +174,10 @@ def test_every_reference_function_is_compared():
             "parse_collectives", "Roofline.with_consensus",
             "ring_exchange_shard", "_wire_dtype", "make_fed_mesh",
             "fed_param_spec", "with_sharding", "constrain", "dryrun_one",
-            "ring_consensus_shard", "ring_sketch_exchange"} <= names
+            "ring_consensus_shard", "ring_sketch_exchange",
+            "consensus_step_pytree", "partial_consensus_step_pytree",
+            "Registry.register", "Registry.unregister", "Registry.view",
+            "RegistryView.__contains__"} <= names
     assert len(CASES) == CASE_COUNT
 
 
